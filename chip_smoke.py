@@ -5,20 +5,45 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. the card: name and power limit from nvidia-smi; no CUDA card fails;
-2. build: the Schur kernel from conex_tpu_torch/csrc with nvcc, with the
-   build time and ptxas's registers and shared memory;
-3. kernel against plain: the CUDA Schur kernel against schur_plain on the
-   card, in f64 (relative Frobenius error <= 1e-12) and in f32 against an
-   f64 oracle (<= 1e-4, a sum of up to 10^4 f32 terms), at a small shape and
-   at the benchmark shape; CUDA-event times of both at the benchmark shape;
-4. the main path: bench.py's workload (B=256 dense SDPs, n=100, m=50, f32,
-   30 fixed Newton iterations) through conex_tpu_torch.solve_scenarios:
+2. build: both kernels (csrc/schur.cu and csrc/fused_socp.cu) with nvcc,
+   with the build time and ptxas's registers, shared memory, stack frame
+   and spills for every entry;
+3. Schur kernel against plain: the CUDA Schur kernel against schur_plain
+   on the card, in f64 (relative Frobenius error <= 1e-12) and in f32
+   against an f64 oracle (<= 1e-4, a sum of up to 10^4 f32 terms), at a
+   small shape and at the benchmark shape; CUDA-event times of both at the
+   benchmark shape;
+3b. fused SOCP kernel against plain: the CUDA kernel against
+   solve_socp_plain on the card, every field of FusedSOCPResult: iteration
+   counts and status flags identical, the floating fields (y, y_kkt, w, k,
+   the scalings, stats_k, stats_dinf) within a relative limit.  In f64
+   (limit 1e-8: the two take every sum in the same order and agree to the
+   bit; a change of order alone grows tenfold per iteration where k climbs
+   fast) on small batches that reach every branch (feasible, infeasible, a
+   factorization failure, refinement, the stall detector, dual recovery, a
+   poisoned warmstart) and at the bench_socp shape (S = 1,000, 30 fixed
+   iterations).  In f32 at the bench_socp shape at S = 1,000, 10,000 and
+   100,000 (limit 1e-6, ten ulps: see F32_LIMIT); as an extra check, f32
+   against an f64 oracle
+   at S = 10,000: 30 iterations and no failure in both, median relative
+   stats_k difference over iterations 1-2 <= 1e-3.  CUDA-event times of
+   both at the three sizes;
+4. the SDP main path: bench.py's workload (B=256 dense SDPs, n=100, m=50,
+   f32, 30 fixed Newton iterations) through conex_tpu_torch.solve_scenarios:
    every scenario must run exactly 30 iterations without a factorization
-   failure, through the kernel once per iteration; Newton it/s as the best
-   of 3 runs; then a small f64 instance of the same configuration on the
-   card against the same solve on the CPU (the plain path);
+   failure, through the Schur kernel once per iteration; Newton it/s as the
+   best of 3 runs; then a small f64 instance of the same configuration on
+   the card against the same solve on the CPU (the plain path);
+4b. the SOCP main path: `bench.py socp`'s workload (nc=1, n=20, m=10, f32,
+   30 fixed iterations) through parallel.fused_socp.solve_socp_fused at
+   S = 1,000, 10,000, 100,000: 30 iterations and no failure in every
+   scenario, one kernel launch per call, Newton it/s as the best of 3 runs;
+   the same workload at S = 10,000 through solve_scenarios with SOCCone
+   (the general path), its it/s and its agreement with the fused path;
 5. a known answer: a small f64 SDP through Program(device="cuda"), against
-   lambda_min(C) and the CPU solve.
+   lambda_min(C) and the CPU solve;
+5b. a known SOC answer through Program(device="cuda"): max b'y s.t.
+   (1, y) in the Lorentz cone, y = b/|b|, and its dual, against the CPU.
 
 The last lines are the kernels' JSON record, the card's name and power
 limit, and {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -31,6 +56,22 @@ import time
 
 SCHUR_SOURCE = "conex_tpu_torch/csrc/schur.cu"
 SCHUR_REPLACES = "conex_tpu/cones/psd_pallas.py:48"
+FUSED_SOURCE = "conex_tpu_torch/csrc/fused_socp.cu"
+FUSED_REPLACES = "conex_tpu/parallel/fused_socp.py:234"
+SOCP_SIZES = (1_000, 10_000, 100_000)
+SOCP_FLAGS = ("num_iterations", "solved", "fail", "primal_infeasible",
+              "dual_infeasible", "mu_stalled", "warmstart_aborted")
+SOCP_FLOATS = ("y", "y_kkt", "w", "k", "b_scaling", "c_scaling", "stats_k",
+               "stats_dinf")
+SOCP_PER_SCENARIO = ("y", "y_kkt", "w")
+# Kernel against plain, relative.  The two round every operation alike and
+# measure equal to the bit in both precisions on an H100.  f64 allows for
+# sums taken in another order, amplified over up to 60 iterations.  In f32
+# a change of rounding is not bounded that way: FMA contraction alone moves
+# the bench_socp trajectory by a median 0.19 over 30 iterations (iterations
+# 1-2: 1.2e-7), so the limit admits ten float32 ulps and nothing more.
+F64_LIMIT = 1e-8
+F32_LIMIT = 1e-6
 
 
 def log(msg):
@@ -208,6 +249,7 @@ def phase_main_path(device):
 
     from conex_tpu_torch import solve_scenarios
     from conex_tpu_torch.cones import psd_schur
+    from conex_tpu_torch.parallel import fused_socp
 
     t0 = time.perf_counter()
     blk, b, init_ws, scalars, config = bench_workload(device)
@@ -219,9 +261,12 @@ def phase_main_path(device):
         return res
 
     psd_schur.schur_kernel.launches = 0
+    fused_socp.solve_socp_kernel.launches = 0
     t0 = time.perf_counter()
     res = run(b)
     launches = psd_schur.schur_kernel.launches
+    if fused_socp.solve_socp_kernel.launches:
+        fail("the fused SOCP kernel ran on the SDP path")
     log(f"[4 main path] first run {time.perf_counter() - t0:.3f} s, "
         f"Schur kernel launches {launches}")
     n_iters = res.num_iterations.cpu()
@@ -322,6 +367,372 @@ def phase_known_answer(device):
         fail("card and CPU objectives differ by more than 1e-8")
 
 
+# ---------------------------------------------------------------------------
+# The fused batched-SOCP solver (kernel K2)
+# ---------------------------------------------------------------------------
+
+
+def random_socp(rng, S, nc, n, m, feasible=True):
+    """tests/test_fused_socp.py:22-40: S programs of nc Lorentz cones of
+    dim n+1 over m variables; a feasible one has b = A(x) for an interior
+    dual point x, an infeasible one a random b."""
+    import numpy as np
+
+    A = rng.standard_normal((S, nc, n + 1, m))
+    if feasible:
+        x = rng.standard_normal((S, nc, n + 1))
+        x[..., 0] = np.linalg.norm(x[..., 1:], axis=-1) + rng.uniform(
+            0.5, 1.5, (S, nc))
+        b = 2.0 * np.einsum("scnv,scn->sv", A, x)
+    else:
+        b = rng.standard_normal((S, m))
+    c = rng.standard_normal((S, nc, n + 1))
+    c[..., 0] = np.linalg.norm(c[..., 1:], axis=-1) + rng.uniform(
+        0.5, 2.0, (S, nc))
+    return A, c, b
+
+
+def socp_workload(S, n=20, m=10):
+    """benchmarks/bench_socp.py:28-36 (seed 0): S single-cone SOCPs, f32."""
+    import numpy as np
+
+    dtype = np.float32
+    rng = np.random.default_rng(0)
+    A = rng.standard_normal((S, 1, n + 1, m)).astype(dtype)
+    x = rng.standard_normal((S, 1, n + 1)).astype(dtype)
+    x[..., 0] = np.linalg.norm(x[..., 1:], axis=-1) + 1.0
+    b = 2.0 * np.einsum("scnv,scn->sv", A, x).astype(dtype)
+    c = rng.standard_normal((S, 1, n + 1)).astype(dtype)
+    c[..., 0] = np.linalg.norm(c[..., 1:], axis=-1) + 1.0
+    return A, c, b
+
+
+def socp_config(iters=30):
+    """benchmarks/bench_socp.py:66-73's cfg(iters)."""
+    from conex_tpu_torch import SolverConfig
+
+    return SolverConfig(max_iterations=iters, final_centering_steps=0,
+                        inv_sqrt_mu_max=1e15, kkt_error_tolerance=1e45,
+                        fixed_iterations=True)
+
+
+def fused_inputs(A, c, b, dtype, device, init_w=None, init_k=None):
+    """The kernel's seven inputs (A, c, b, w0, k0, b and c scalings) as
+    contiguous tensors; the defaults of solve_socp_fused."""
+    import numpy as np
+    import torch
+
+    S, nc, n1, _ = A.shape
+    if init_w is None:
+        init_w = np.zeros((S, nc, n1))
+        init_w[..., 0] = 1.0
+    if init_k is None:
+        init_k = np.zeros(S)
+    return tuple(
+        torch.as_tensor(np.asarray(x), dtype=dtype, device=device).contiguous()
+        for x in (A, c, b, init_w, init_k, np.ones(S), np.ones(S)))
+
+
+def _same(g, w):
+    """Where two tensors hold the same value (NaN and inf included)."""
+    return (g == w) | (g.isnan() & w.isnan())
+
+
+def stats_rel(got, want):
+    """Entrywise |got - want| / |want|; 0 where the two are equal."""
+    import torch
+
+    g, w = got.double(), want.double()
+    return torch.where(_same(g, w), 0.0, (g - w).abs() / w.abs().clamp_min(1e-300))
+
+
+def per_scenario_rel(got, want):
+    """Each scenario's |got - want| / |want| in the 2-norm; 0 where the two
+    are equal."""
+    import torch
+
+    S = want.shape[0]
+    g, w = got.double().reshape(S, -1), want.double().reshape(S, -1)
+    num = torch.linalg.vector_norm(g - w, dim=1)
+    rel = num / torch.linalg.vector_norm(w, dim=1).clamp_min(1e-300)
+    return torch.where(_same(g, w).all(1), 0.0, rel)
+
+
+def max_abs_diff(got, want):
+    import torch
+
+    g, w = got.double(), want.double()
+    return float(torch.where(_same(g, w), 0.0, (g - w).abs()).max())
+
+
+def unbounded_and_infeasible(rng, A, c, b, unbounded, infeasible):
+    """In place: make the objective of the ``unbounded`` scenarios grow
+    without bound along y_0 (-A e_0 inside every cone, b_0 > 0), and the
+    ``infeasible`` ones infeasible (cone 0 reads c_0 = -1 whatever y is)."""
+    import numpy as np
+
+    idx = list(unbounded)
+    x = rng.standard_normal((len(idx),) + A.shape[1:3])
+    x[..., 0] = np.linalg.norm(x[..., 1:], axis=-1) + 0.5
+    A[idx, :, :, 0] = -x
+    b[idx, 0] = np.abs(b[idx, 0]) + 1.0
+    idx = list(infeasible)
+    A[idx, 0, 0, :] = 0.0
+    c[idx, 0, 0] = -1.0
+
+
+def check_fused(label, args, config, limit):
+    """Kernel against plain on the same inputs, every field of
+    FusedSOCPResult: iteration counts and flags identical; the floating
+    fields within ``limit`` relative (in each scenario's 2-norm for y,
+    y_kkt and w, entrywise for the rest).  Returns the plain version's
+    counts of each flag and the largest |kernel - plain| over the floating
+    fields."""
+    import torch
+
+    from conex_tpu_torch.parallel import fused_socp
+
+    got = fused_socp.epilogue(fused_socp.solve_socp_kernel(*args, config), config)
+    want = fused_socp.epilogue(fused_socp.solve_socp_plain(*args, config), config)
+    torch.cuda.synchronize()
+    counts = {name: int(getattr(want, name).to(torch.int64).sum()) for name in SOCP_FLAGS}
+    counts["aborted at iteration 1"] = int((want.stats_dinf[:, 0] >= 2.0).sum())
+    log(f"[3b fused kernel] {label}: S={args[0].shape[0]}, plain version's "
+        f"counts {counts}")
+    for name in SOCP_FLAGS:
+        g, w = getattr(got, name), getattr(want, name)
+        if not torch.equal(g, w):
+            bad = (g != w).nonzero()[:5, 0].tolist()
+            fail(f"{label}: {name} differs from the plain version in scenarios "
+                 f"{bad}: kernel {g[bad].tolist()} plain {w[bad].tolist()}")
+    rel = {name: float((per_scenario_rel if name in SOCP_PER_SCENARIO else stats_rel)(
+        getattr(got, name), getattr(want, name)).max()) for name in SOCP_FLOATS}
+    max_abs = max(max_abs_diff(getattr(got, f), getattr(want, f)) for f in SOCP_FLOATS)
+    log(f"[3b fused kernel] {label}: flags identical; max relative difference "
+        f"{rel} (limit {limit:g}); max |kernel - plain| {max_abs:.3e}")
+    if not all(v <= limit for v in rel.values()):
+        s = int(stats_rel(got.stats_k, want.stats_k).amax(1).argmax())
+        log(f"  scenario {s}: kernel stats_k {got.stats_k[s].tolist()}")
+        log(f"  scenario {s}: plain  stats_k {want.stats_k[s].tolist()}")
+        fail(f"{label}: kernel and plain version disagree beyond {limit:g}: {rel}")
+    return counts, max_abs
+
+
+def phase_fused_kernel(device):
+    """Returns the kernel's record: max |kernel - plain| over the f32
+    comparisons at the main path's shapes, and the CUDA-event times of both
+    at the largest."""
+    import numpy as np
+    import torch
+
+    from conex_tpu_torch import WARMSTART, SolverConfig
+    from conex_tpu_torch.parallel import fused_socp
+
+    f64 = torch.float64
+    # Cold: feasible scenarios of 3 cones, random objectives (40 of them
+    # made unbounded or infeasible on purpose), and one whose A has an
+    # all-zero column (its factorization fails at iteration 0).
+    rng = np.random.default_rng(11)
+    feas = random_socp(rng, 200, 3, 4, 3)
+    rand = random_socp(rng, 100, 3, 4, 3, feasible=False)
+    A, c, b = (np.concatenate(pair) for pair in zip(feas, rand))
+    unbounded_and_infeasible(rng, A, c, b, range(200, 220), range(220, 240))
+    A[5, :, :, 1] = 0.0
+    cold = SolverConfig(max_iterations=60, prepare_dual_variables=True,
+                        iterative_refinement_iterations=1, mu_stall_iterations=4)
+    counts, max_abs = check_fused("f64 cold", fused_inputs(A, c, b, f64, device),
+                                  cold, F64_LIMIT)
+    if not (counts["fail"] >= 1 and counts["solved"] >= 1
+            and counts["mu_stalled"] >= 1):
+        fail(f"f64 cold batch misses a branch: {counts}")
+    # Warm from a poisoned iterate (w0 = 1e6 e) in half the scenarios; one
+    # with a zero column resets at its first iteration and fails at the
+    # next; ten unbounded ones run out of iterations.
+    rng = np.random.default_rng(12)
+    A, c, b = random_socp(rng, 200, 2, 4, 3)
+    unbounded_and_infeasible(rng, A, c, b, range(150, 160), ())
+    A[7, :, :, 0] = 0.0
+    w0 = np.zeros((200, 2, 5))
+    w0[..., 0] = 1.0
+    w0[:100, :, 0] = 1e6
+    warm = SolverConfig(max_iterations=40, initialization_mode=WARMSTART,
+                        warmstart_abort_threshold=2.0)
+    counts, abs_warm = check_fused(
+        "f64 warm", fused_inputs(A, c, b, f64, device, w0, np.ones(200)), warm,
+        F64_LIMIT)
+    if not (counts["aborted at iteration 1"] >= 100 and counts["fail"] >= 1
+            and counts["solved"] <= 200 - 11):
+        fail(f"f64 warm batch misses the abort, the failure or the "
+             f"unsolved: {counts}")
+    # f64 at the bench_socp shape (30 fixed iterations), the same rule.
+    config = socp_config()
+    counts, abs_bench = check_fused(
+        "f64 bench shape", fused_inputs(*socp_workload(1_000), f64, device),
+        config, F64_LIMIT)
+    if counts["num_iterations"] != 30 * 1_000 or counts["fail"]:
+        fail(f"f64 bench shape: not 30 iterations without failure: {counts}")
+    log(f"[3b fused kernel] f64 max |kernel - plain|: {max(max_abs, abs_warm, abs_bench):.3e}")
+
+    # f32 at the bench_socp shape against an f64 oracle (an extra check of
+    # the f32 arithmetic: the kernel is held to its plain twin below).
+    A, c, b = socp_workload(10_000)
+    got = fused_socp.epilogue(fused_socp.solve_socp_kernel(
+        *fused_inputs(A, c, b, torch.float32, device), config), config)
+    want = fused_socp.epilogue(fused_socp.solve_socp_plain(
+        *fused_inputs(A, c, b, f64, device), config), config)
+    torch.cuda.synchronize()
+    for name, r in (("kernel f32", got), ("f64 oracle", want)):
+        if not ((r.num_iterations == 30).all() and not r.fail.any()):
+            fail(f"bench shape: {name} did not run 30 iterations in every "
+                 f"scenario without failure")
+    rel = stats_rel(got.stats_k, want.stats_k)
+    med12 = float(rel[:, :2].median())
+    log(f"[3b fused kernel] f32 bench shape S=10000: stats_k vs f64 oracle, "
+        f"iterations 1-2 median {med12:.3e} (limit 1e-3); whole trajectory "
+        f"median {float(rel.median()):.3e}, p99 "
+        f"{float(rel.flatten().quantile(0.99)):.3e}, max {float(rel.max()):.3e}")
+    if not med12 <= 1e-3:
+        fail(f"f32 kernel drifts from the f64 oracle at iterations 1-2: {med12}")
+
+    # At the main path's three sizes in f32: kernel against plain on the
+    # same inputs, every field; then CUDA-event times, in turns: plain,
+    # kernel, kernel, plain.
+    times, max_abs = {}, 0.0
+    for S in SOCP_SIZES:
+        args = fused_inputs(*socp_workload(S), torch.float32, device)
+        _, abs_s = check_fused(f"f32 S={S}", args, config, F32_LIMIT)
+        max_abs = max(max_abs, abs_s)
+        fns = {"plain": lambda: fused_socp.solve_socp_plain(*args, config),
+               "kernel": lambda: fused_socp.solve_socp_kernel(*args, config)}
+        ms = {"plain": [], "kernel": []}
+        for name in ("plain", "kernel", "kernel", "plain"):
+            ms[name].append(time_ms(fns[name], 3))
+        times[S] = (min(ms["kernel"]), min(ms["plain"]))
+        log(f"[3b fused kernel] S={S} f32, 30 iterations, ms per call: kernel "
+            f"{ms['kernel']}, plain {ms['plain']} (CUDA events, 3 calls each)")
+        del args, fns
+    kernel_ms, plain_ms = times[SOCP_SIZES[-1]]
+    return dict(max_abs_err=max_abs, ms=kernel_ms, plain_ms=plain_ms)
+
+
+def phase_socp_main_path(device):
+    import torch
+
+    from conex_tpu_torch import solve_scenarios
+    from conex_tpu_torch.cones import psd_schur
+    from conex_tpu_torch.cones.soc import SOCCone
+    from conex_tpu_torch.parallel import fused_socp
+    from conex_tpu_torch.parallel.fused_socp import solve_socp_fused
+
+    config = socp_config()
+    iters = config.max_iterations
+    kernel = fused_socp.solve_socp_kernel
+    psd_schur.schur_kernel.launches = 0
+    kernel.launches = 0
+    for S in SOCP_SIZES:
+        A, c, b = (torch.from_numpy(x).to(device) for x in socp_workload(S))
+
+        def run(bv):
+            before = kernel.launches
+            out = solve_socp_fused(A, c, bv, config)
+            torch.cuda.synchronize()
+            if kernel.launches != before + 1:
+                fail(f"S={S}: {kernel.launches - before} kernel launches in one call")
+            return out
+
+        out = run(b)
+        total = int(out.num_iterations.sum())
+        n_fail = int(out.fail.sum())
+        log(f"[4b socp main path] S={S}: iterations {total} (want {iters * S}), "
+            f"failures {n_fail}")
+        if total != iters * S or n_fail:
+            fail(f"S={S}: bench_socp validity rule: every scenario must run "
+                 f"{iters} iterations without failure")
+        if out.y.shape != b.shape or not torch.isfinite(out.y).all():
+            fail(f"S={S}: y is not finite of shape {tuple(b.shape)}")
+        best = float("inf")
+        for rep in range(3):
+            t0 = time.perf_counter()
+            run(b * (1.0 + 1e-6 * (rep + 1)))
+            best = min(best, time.perf_counter() - t0)
+        log(f"[4b socp main path] S={S}: fused Newton it/s {total / best:.2f} "
+            f"(best of 3: {best * 1e3:.3f} ms)")
+        if S == 10_000:
+            general_inputs = (A, c, b, out)
+    launches = kernel.launches
+    log(f"[4b socp main path] fused kernel launches {launches}, Schur kernel "
+        f"launches {psd_schur.schur_kernel.launches}")
+    if psd_schur.schur_kernel.launches:
+        fail("the Schur kernel ran on the SOCP path")
+
+    # The general path at S = 10,000: the solve loop with SOCCone blocks.
+    A, c, b, fused = general_inputs
+    S, nc, n1, _ = A.shape
+    w0 = torch.zeros((S, nc, n1), dtype=A.dtype, device=device)
+    w0[..., 0] = 1.0
+    scalars = dict(k=torch.zeros((S,), dtype=A.dtype, device=device),
+                   b_scaling=torch.ones((S,), dtype=A.dtype, device=device),
+                   c_scaling=torch.ones((S,), dtype=A.dtype, device=device))
+
+    def run_general(bv):
+        res = solve_scenarios((SOCCone(A=A, c=c),), (), bv, (w0,), scalars, config)
+        torch.cuda.synchronize()
+        return res
+
+    res = run_general(b)
+    total = int(res.num_iterations.sum())
+    best = float("inf")
+    for rep in range(3):
+        t0 = time.perf_counter()
+        run_general(b * (1.0 + 1e-6 * (rep + 1)))
+        best = min(best, time.perf_counter() - t0)
+    rel = stats_rel(fused.stats_k[:, :2], res.stats_k[:, :2])
+    med = float(rel.median())
+    log(f"[4b socp main path] general path S={S}: iterations {total}, failures "
+        f"{int(res.fail.sum())}, Newton it/s {total / best:.2f} (best of 3: "
+        f"{best * 1e3:.3f} ms); stats_k iterations 1-2 fused vs general: median "
+        f"{med:.3e} p99 {float(rel.flatten().quantile(0.99)):.3e} max "
+        f"{float(rel.max()):.3e} (limit on the median 1e-3)")
+    if not torch.isfinite(res.k).all() or not med <= 1e-3:
+        fail("the general SOCP path disagrees with the fused path")
+    if kernel.launches != launches:
+        fail("the general SOCP path launched the fused kernel")
+    return launches
+
+
+def phase_soc_known_answer(device):
+    """max b'y s.t. (1, y) in Q^{m+1}: y = b/|b|, dual x = (|b|, -b)."""
+    import numpy as np
+
+    from conex_tpu_torch import Program, SolverConfig
+
+    m = 4
+    b = np.random.default_rng(6).standard_normal(m)
+    A = np.vstack([np.zeros((1, m)), -np.eye(m)])
+    c = np.zeros(m + 1)
+    c[0] = 1.0
+    config = SolverConfig(prepare_dual_variables=True, max_iterations=60)
+    out = {}
+    for dev in ("card", "cpu"):
+        prog = Program(m, device=device if dev == "card" else "cpu")
+        prog.add_soc_constraint(A, c)
+        res = prog.solve(b, config)
+        if not res.solved:
+            fail(f"known-answer SOCP not solved on the {dev}")
+        out[dev] = (res.y, prog.get_dual_variable(0))
+    (y_card, x_card), (y_cpu, x_cpu) = out["card"], out["cpu"]
+    e_ans = float(np.abs(y_card - b / np.linalg.norm(b)).max())
+    e_cpu = float(np.abs(y_card - y_cpu).max())
+    e_dual = float(np.linalg.norm(x_card - x_cpu) / np.linalg.norm(x_cpu))
+    e_kkt = float(np.abs(A.T @ x_card - b).max())
+    log(f"[5b soc known answer] y on the card {y_card.tolist()}: max |y - b/|b||"
+        f" {e_ans:.3e} (limit 1e-6), max |card - CPU| {e_cpu:.3e} (limit 1e-8); "
+        f"dual card vs CPU relative {e_dual:.3e} (limit 1e-8), max |A'x - b| "
+        f"{e_kkt:.3e} (limit 1e-6)")
+    if not (e_ans <= 1e-6 and e_cpu <= 1e-8 and e_dual <= 1e-8 and e_kkt <= 1e-6):
+        fail("the SOC known answer does not hold on the card")
+
+
 def main():
     card = card_name_and_power_limit()
     log(f"[1 card] {card}")
@@ -340,24 +751,28 @@ def main():
     build = _build.build(force=True)
     log(f"[2 build] nvcc {build.seconds:.2f} s -> {build.path.name}")
     for line in build.log.splitlines():
-        if "ptxas info" in line and ("Used" in line or "entry" in line):
+        if ("ptxas info" in line and ("Used" in line or "entry" in line)
+                or "stack frame" in line):
             log(f"[2 build] {line.strip()}")
 
-    record = phase_kernel(device)
-    launches = phase_main_path(device)
+    schur = phase_kernel(device)
+    fused = phase_fused_kernel(device)
+    schur["launches"] = phase_main_path(device)
     phase_small_vs_cpu(device)
+    fused["launches"] = phase_socp_main_path(device)
     phase_known_answer(device)
+    phase_soc_known_answer(device)
 
-    print(json.dumps({"kernels": [{
-        "name": "schur",
-        "route": "cuda",
-        "source": SCHUR_SOURCE,
-        "replaces": SCHUR_REPLACES,
-        "launches": launches,
-        "max_abs_err": record["max_abs_err"],
-        "ms": record["ms"],
-        "plain_ms": record["plain_ms"],
-    }]}), flush=True)
+    kernels = [
+        dict(name="schur", route="cuda", source=SCHUR_SOURCE,
+             replaces=SCHUR_REPLACES, **schur),
+        dict(name="fused_socp", route="cuda", source=FUSED_SOURCE,
+             replaces=FUSED_REPLACES, **fused),
+    ]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms")
+    print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}),
+          flush=True)
     print(card_name_and_power_limit(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

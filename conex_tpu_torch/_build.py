@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` are compiled with nvcc into one shared library with a plain C
-interface, loaded with ctypes.  The build happens at first use, on the
+``csrc/*.cu`` are compiled with nvcc, one process per source, all started
+together, and linked into one shared library with a plain C interface,
+loaded with ctypes.  The build happens at first use, on the
 machine with the card, into ``conex_tpu_torch/_build/`` (listed in
 .gitignore); the library's file name carries a hash of the sources and
 flags, so an edited source is never served from a stale build.  Nothing is
@@ -21,11 +22,16 @@ from pathlib import Path
 from typing import NamedTuple, Optional
 
 _PKG = Path(__file__).resolve().parent
-SOURCES = (_PKG / "csrc" / "schur.cu",)
+SOURCES = (_PKG / "csrc" / "schur.cu", _PKG / "csrc" / "fused_socp.cu")
 BUILD_DIR = _PKG / "_build"
+# No --use_fast_math: the kernels keep IEEE sqrt, exp and division.  No FMA
+# contraction: every product and sum is rounded on its own, as in the plain
+# versions (fused_socp.cu matches parallel/fused_socp.py::solve_socp_plain
+# to the bit).  The flag leaves explicit fma() calls alone, which schur.cu
+# makes; on an H100 it costs the fused SOCP kernel 0.5-3% (PERF.md).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -33,6 +39,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # conex_schur_f{32,64}(A, W, C, P, G, AW, AQc, wc, cqc, S, Bc, m, n, stream)
 _SCHUR_ARGTYPES = [_P] * 9 + [_I] * 4 + [_P]
+# conex_socp_fused_f{32,64}(23 device pointers, S, nc, n1, m, iparams,
+# dparams, stream); iparams and dparams are host arrays
+_SOCP_ARGTYPES = [_P] * 23 + [_I] * 4 + [_P] * 3
 
 
 class Build(NamedTuple):
@@ -67,11 +76,32 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds) -> str:
+    """Run the commands in parallel; their output, or RuntimeError naming
+    the first that failed."""
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for cmd in cmds
+    ]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, text in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{text}"
+            )
+    return "".join(outs)
+
+
 def _bind(lib: ctypes.CDLL) -> None:
-    for name in ("conex_schur_f32", "conex_schur_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = _SCHUR_ARGTYPES
-        fn.restype = _I
+    for names, argtypes in (
+        (("conex_schur_f32", "conex_schur_f64"), _SCHUR_ARGTYPES),
+        (("conex_socp_fused_f32", "conex_socp_fused_f64"), _SOCP_ARGTYPES),
+    ):
+        for name in names:
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _I
 
 
 def build(force: bool = False) -> Build:
@@ -87,19 +117,23 @@ def build(force: bool = False) -> Build:
         out = BUILD_DIR / f"libconex_tpu_torch_{_digest()}.so"
         seconds, log = 0.0, ""
         if force or not out.exists():
-            # Compile to a private name and rename: concurrent processes on
+            # Compile to private names and rename: concurrent processes on
             # one checkout never load a half-written library.
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+            tag = f"{out.stem}.{os.getpid()}"
+            objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
+            tmp = BUILD_DIR / f"{tag}.so.tmp"
+            nvcc = _nvcc()
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            compiles = [
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(SOURCES, objs)
+            ]
+            log = _run_all(compiles)
+            log += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
             seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}"
-                )
             os.replace(tmp, out)
+            for obj in objs:
+                obj.unlink()
         lib = ctypes.CDLL(str(out))
         _bind(lib)
         _loaded = Build(lib=lib, path=out, seconds=seconds, log=log)

@@ -1,9 +1,10 @@
 """Carry problem data and solver state between numpy and the port.
 
 The JAX package's data and state convert to numpy with ``np.asarray``
-(cone tensors ``DenseLMICone.A/C``, ``PSDState`` fields, the init scalars);
-these helpers turn such numpy arrays into the port's tensors on a given
-device, and a port ``SolveResult`` back into numpy (``to_numpy``).  The field names and
+(cone tensors ``DenseLMICone.A/C`` and ``SOCCone.A/c``, ``PSDState``
+fields, the init scalars); these helpers turn such numpy arrays into the
+port's tensors on a given device, and a port ``SolveResult`` or
+``FusedSOCPResult`` back into numpy (``to_numpy``).  The field names and
 layouts are the JAX package's, with the scenario axis first.
 """
 
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from .cones.psd import DenseLMICone, PSDState
+from .cones.soc import SOCCone
 
 
 def tensor(x, device=None) -> torch.Tensor:
@@ -23,6 +25,11 @@ def tensor(x, device=None) -> torch.Tensor:
 def lmi_cone(A, C, device=None) -> DenseLMICone:
     """DenseLMICone from A (S, B, v, n, n) and C (S, B, n, n)."""
     return DenseLMICone(A=tensor(A, device), C=tensor(C, device))
+
+
+def soc_cone(A, c, device=None) -> SOCCone:
+    """SOCCone from A (S, B, n+1, v) and c (S, B, n+1)."""
+    return SOCCone(A=tensor(A, device), c=tensor(c, device))
 
 
 def psd_state(state, device=None) -> PSDState:

@@ -1,21 +1,22 @@
-"""Host-side Program: a conic program of LMI constraints.
+"""Host-side Program: a conic program of SOC and LMI constraints.
 
-Twin of the LMI subset of ``conex_tpu/program.py``: collect dense LMI
-constraints, then solve coldstart or warmstart and read back the dual
-variables.  The other adders come with their cones (ROADMAP.md queue 1).
-A Program runs on one device, given as ``device=``.
+Twin of the SOC and LMI subset of ``conex_tpu/program.py``: collect
+Lorentz-cone and dense LMI constraints, then solve coldstart or warmstart
+and read back the dual variables.  The other adders come with their cones
+(ROADMAP.md queue 1).  A Program runs on one device, given as ``device=``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Union
 
 import numpy as np
 import torch
 
 from .config import COLDSTART, WARMSTART, SolverConfig, not_ported
 from .cones.psd import DenseLMICone
+from .cones.soc import SOCCone
 from .convert import to_numpy
 from .solver.loop import SolveResult, _solve_impl, _strip_scenario
 
@@ -36,13 +37,14 @@ class Result:
 
 
 class Program:
-    """A conic program: maximize b'y  s.t.  C - sum_i y_i A_i PSD."""
+    """A conic program: maximize b'y  s.t.  c_j - A_j y in Q (Lorentz
+    cones) and C - sum_i y_i A_i PSD (LMIs)."""
 
     def __init__(self, num_vars: int, dtype=torch.float64, device="cpu"):
         self.num_vars = int(num_vars)
         self.dtype = dtype
         self.device = torch.device(device)
-        self._blocks: List[DenseLMICone] = []
+        self._blocks: List[Union[SOCCone, DenseLMICone]] = []
         self._ws = None  # warmstart state (final cone iterates)
         self._scalings = None  # (b_scaling, c_scaling) from last solve
         self._last_result: Optional[SolveResult] = None
@@ -51,6 +53,38 @@ class Program:
         return torch.as_tensor(np.asarray(x, dtype=np.float64)).to(
             device=self.device, dtype=self.dtype
         )
+
+    def _check_variables(self, variables, v):
+        """Only the first v variables are supported: a sparse subset needs
+        the supernodal KKT path, not ported yet."""
+        if v > self.num_vars:
+            raise ValueError("constraint has more variables than the program")
+        if variables is not None:
+            t = tuple(int(x) for x in variables)
+            if len(set(t)) != len(t):
+                raise ValueError("duplicate variables in constraint")
+            if t != tuple(range(v)):
+                raise not_ported("sparse variable subsets", "13")
+
+    def add_soc_constraint(self, A, c, variables=None):
+        """c - A y in the Lorentz cone (reference SOCConstraint).
+
+        A: (n+1, v), c: (n+1,) for a single cone; or batched
+        A: (B, n+1, v), c: (B, n+1) for B same-shape cones over the same
+        variables.
+        """
+        A = np.asarray(A, dtype=np.float64)
+        c = np.asarray(c, dtype=np.float64)
+        if A.ndim == 2:
+            A = A[None]
+            c = c[None]
+        if A.ndim != 3 or A.shape[:2] != c.shape:
+            raise ValueError("A and c batch/cone dimensions must match")
+        self._check_variables(variables, A.shape[2])
+        self._blocks.append(
+            SOCCone(A=self._tensor(A)[None], c=self._tensor(c)[None])
+        )
+        return len(self._blocks) - 1
 
     def add_lmi_constraint(self, A, C, variables=None):
         """C - sum_i y_i A_i PSD (reference DenseLMIConstraint).
@@ -71,15 +105,7 @@ class Program:
             C, np.swapaxes(C, 1, 2)
         ):
             raise ValueError("LMI matrices must be symmetric")
-        v = A.shape[1]
-        if v > self.num_vars:
-            raise ValueError("constraint has more variables than the program")
-        if variables is not None:
-            t = tuple(int(x) for x in variables)
-            if len(set(t)) != len(t):
-                raise ValueError("duplicate variables in constraint")
-            if t != tuple(range(v)):
-                raise not_ported("sparse variable subsets", "13")
+        self._check_variables(variables, A.shape[1])
         self._blocks.append(
             DenseLMICone(A=self._tensor(A)[None], C=self._tensor(C)[None])
         )
@@ -143,7 +169,9 @@ class Program:
         if raw is None:
             raise RuntimeError("no solve yet")
         blk = self._blocks[i]
-        w = np.asarray(blk.dual_variable(raw.ws[i]))
+        w = np.asarray(blk.dual_variable(raw.ws[i])) * getattr(
+            blk, "dual_scale", 1.0
+        )
         if not bool(raw.primal_infeasible):
             w = w / (float(raw.k) * float(raw.b_scaling))
         if w.ndim >= 2 and w.shape[0] == 1:

@@ -15,6 +15,7 @@ pass); under ``fixed_iterations`` it runs all passes without that sync.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Tuple
 
 import torch
@@ -559,15 +560,28 @@ def solve(blocks, eq_blocks, b, init_ws, init_scalars, config: SolverConfig):
     """One program (the twin of ``conex_tpu.solver.loop.solve_compiled``):
     block tensors, b (m,) and init state without the scenario axis.  Runs
     as a batch of one scenario and returns a SolveResult without it."""
-    import dataclasses
-
-    blocks1 = tuple(
-        dataclasses.replace(blk, A=blk.A[None], C=blk.C[None]) for blk in blocks
-    )
-    ws1 = tuple(type(w)(*(x[None] for x in w)) for w in init_ws)
+    blocks1 = tuple(_add_scenario(blk) for blk in blocks)
+    ws1 = tuple(_add_scenario(w) for w in init_ws)
     scalars1 = {key: torch.as_tensor(x)[None] for key, x in init_scalars.items()}
     res = _solve_impl(blocks1, eq_blocks, b[None], ws1, scalars1, config)
     return _strip_scenario(res)
+
+
+def _add_scenario(tree):
+    """A leading scenario axis of one on every tensor of a block dataclass,
+    a state NamedTuple or a bare tensor; other fields stay as they are."""
+    if isinstance(tree, torch.Tensor):
+        return tree[None]
+    if isinstance(tree, tuple):
+        out = [_add_scenario(x) for x in tree]
+        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _add_scenario(getattr(tree, f.name))
+            for f in dataclasses.fields(tree)
+            if isinstance(getattr(tree, f.name), torch.Tensor)
+        })
+    return tree
 
 
 def _strip_scenario(tree):

@@ -62,7 +62,8 @@ def _inverse_lambda_min_branch(budget, p: SlackAgg, rank):
     # a = |lam|^2/lam_min, b = -2 tr/lam_min, n = rank/lam_min.
     a = p.frob_sq / p.lam_min
     b = 2.0 * p.trace / p.lam_min
-    n = rank / p.lam_min
+    # rank / tensor would multiply by a rounded reciprocal (Tensor.__rdiv__)
+    n = torch.full_like(p.lam_min, rank) / p.lam_min
     c = budget
     under_radical = b * b + 2.0 * b * c + c * c - 4.0 * a * n
     ok = under_radical >= 0
