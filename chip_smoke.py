@@ -5,9 +5,9 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. the card: name and power limit from nvidia-smi; no CUDA card fails;
-2. build: both kernels (csrc/schur.cu and csrc/fused_socp.cu) with nvcc,
-   with the build time and ptxas's registers, shared memory, stack frame
-   and spills for every entry;
+2. build: the three sources (csrc/schur.cu, csrc/fused_socp.cu and
+   csrc/schur_probes.cu) with nvcc, with the build time and ptxas's
+   registers, shared memory, stack frame and spills for every entry;
 3. Schur kernel against plain: the CUDA Schur kernel against schur_plain
    on the card, in f64 (relative Frobenius error <= 1e-12) and in f32
    against an f64 oracle (<= 1e-4, a sum of up to 10^4 f32 terms), at a
@@ -28,6 +28,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    at S = 10,000: 30 iterations and no failure in both, median relative
    stats_k difference over iterations 1-2 <= 1e-3.  CUDA-event times of
    both at the three sizes;
+3c. the probe kernels K3-K6 (csrc/schur_probes.cu) against their plain
+   versions on the card, on the probes' inputs (seed 0): in f64 (relative
+   Frobenius error <= 1e-12) at two small shapes (one with two tiles of
+   the Gram matrix) and at the probe shape
+   (B=256, m=50, n=100), in f32 against the f64 plain version (<= 1e-4) at
+   the probe shape; CUDA-event times at the probe shape in f32 of each
+   kernel and its plain version, of the einsum_schur twin, and of K1 on the
+   same inputs as one program of 256 cones (S=1, Bc=256);
 4. the SDP main path: bench.py's workload (B=256 dense SDPs, n=100, m=50,
    f32, 30 fixed Newton iterations) through conex_tpu_torch.solve_scenarios:
    every scenario must run exactly 30 iterations without a factorization
@@ -43,10 +51,16 @@ Phases, each printing its own lines; any failure exits non-zero:
 5. a known answer: a small f64 SDP through Program(device="cuda"), against
    lambda_min(C) and the CPU solve;
 5b. a known SOC answer through Program(device="cuda"): max b'y s.t.
-   (1, y) in the Lorentz cone, y = b/|b|, and its dual, against the CPU.
+   (1, y) in the Lorentz cone, y = b/|b|, and its dual, against the CPU;
+6. the probe entry points: benchmarks/dev_pallas_probe.py's main at
+   256,50,100 and dev_tpu_probe2.py's part2 through their twins in
+   conex_tpu_torch/benchmarks, on the card in f32: each variant's kernel
+   must launch.
 
-The last lines are the kernels' JSON record, the card's name and power
-limit, and {"ok": true, "device": {...}}.  Imports nothing of JAX.
+The last lines are the kernels' JSON record (with each kernel's bound:
+the larger of its operations over the H100's 67 TFLOP/s of float32 and
+its bytes over 3.35 TB/s), the card's name and power limit, and
+{"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 import json
@@ -58,6 +72,20 @@ SCHUR_SOURCE = "conex_tpu_torch/csrc/schur.cu"
 SCHUR_REPLACES = "conex_tpu/cones/psd_pallas.py:48"
 FUSED_SOURCE = "conex_tpu_torch/csrc/fused_socp.cu"
 FUSED_REPLACES = "conex_tpu/parallel/fused_socp.py:234"
+PROBE_SOURCE = "conex_tpu_torch/csrc/schur_probes.cu"
+# (variant, its module in conex_tpu_torch/benchmarks, the TPU kernel)
+PROBES = (("fused_a", "dev_pallas_probe", "benchmarks/dev_pallas_probe.py:37"),
+          ("fused_b", "dev_pallas_probe", "benchmarks/dev_pallas_probe.py:69"),
+          ("fused_b2", "dev_tpu_probe2", "benchmarks/dev_tpu_probe2.py:104"),
+          ("fused_a2", "dev_tpu_probe2", "benchmarks/dev_tpu_probe2.py:180"))
+PROBE_SHAPE = (256, 50, 100)  # B, m, n: dev_pallas_probe.py:208
+# Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
+# float32 outside the tensor cores, and device memory.
+F32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+LIBRARY_NOTE = ("library_ms is null for every kernel: no single PyTorch call "
+                "computes the five Schur outputs (K1, K3-K6) or the SOCP "
+                "solve (K2)")
 SOCP_SIZES = (1_000, 10_000, 100_000)
 SOCP_FLAGS = ("num_iterations", "solved", "fail", "primal_infeasible",
               "dual_infeasible", "mu_stalled", "warmstart_aborted")
@@ -72,6 +100,42 @@ SOCP_PER_SCENARIO = ("y", "y_kkt", "w")
 # 1-2: 1.2e-7), so the limit admits ten float32 ulps and nothing more.
 F64_LIMIT = 1e-8
 F32_LIMIT = 1e-6
+
+
+def bound(ops, nbytes):
+    """The least time the card could take: operations over the float32
+    peak or bytes over the memory rate, whichever is larger."""
+    t_ops, t_bytes = ops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def schur_bound(cones, programs, m, n, itemsize=4):
+    """K1, K3-K6: per cone the m+1 panels Op_v W (C W as operator m),
+    2 (m+1) n^3, and one triangle of the extended Gram matrix over them,
+    2 (m+1)(m+2)/2 n^2 (it is symmetric for any inputs: a trace is unchanged
+    by cycling its factors); A, W and C read once, G, AW, AQc, wc, cqc of
+    each program written once."""
+    ops = (2 * cones * (m + 1) * n**3
+           + 2 * cones * ((m + 1) * (m + 2) // 2) * n**2)
+    nbytes = itemsize * (cones * (m + 2) * n * n + programs * (m * m + 2 * m + 2))
+    return bound(ops, nbytes)
+
+
+def socp_bound(S, nc, n1, m, iterations, T, refine, itemsize=4):
+    """K2, counted from csrc/fused_socp.cu for the Newton iterations this
+    run took: per iteration the panel Q(w^1/2) A and the AW dots (7 nc n1
+    m), one triangle of the Gram sum G (nc n1 m (m+1)), AQc (2 nc n1 m),
+    two slack products (4 nc n1 m), the Cholesky (m^3 / 3) and two KKT
+    solves with their refinement (4 m^2 (1 + 2 refine)); the O(n1) cone
+    arithmetic is left out.  Bytes: the seven inputs read once, the
+    outputs (y, w, six scalars and five int32 flags per scenario, and the
+    T x S statistics) written once."""
+    per_iteration = (nc * n1 * (13 * m + m * (m + 1)) + m**3 / 3
+                     + 4 * m * m * (1 + 2 * refine))
+    nbytes = (itemsize * S * (nc * n1 * m + 2 * nc * n1 + m + 3)
+              + itemsize * S * (m + nc * n1 + 6 + 2 * T) + 4 * 5 * S)
+    return bound(iterations * per_iteration, nbytes)
 
 
 def log(msg):
@@ -182,7 +246,8 @@ def phase_kernel(device):
         ms[name].append(time_ms(fns[name], 10))
     log(f"[3 kernel] bench shape f32 ms per call: kernel {ms['kernel']}, "
         f"plain {ms['plain']} (CUDA events, 10 calls each)")
-    record.update(ms=min(ms["kernel"]), plain_ms=min(ms["plain"]))
+    record.update(ms=min(ms["kernel"]), plain_ms=min(ms["plain"]),
+                  **schur_bound(256, 256, 50, 100))
     return record
 
 
@@ -600,7 +665,7 @@ def phase_fused_kernel(device):
     times, max_abs = {}, 0.0
     for S in SOCP_SIZES:
         args = fused_inputs(*socp_workload(S), torch.float32, device)
-        _, abs_s = check_fused(f"f32 S={S}", args, config, F32_LIMIT)
+        counts, abs_s = check_fused(f"f32 S={S}", args, config, F32_LIMIT)
         max_abs = max(max_abs, abs_s)
         fns = {"plain": lambda: fused_socp.solve_socp_plain(*args, config),
                "kernel": lambda: fused_socp.solve_socp_kernel(*args, config)}
@@ -610,9 +675,13 @@ def phase_fused_kernel(device):
         times[S] = (min(ms["kernel"]), min(ms["plain"]))
         log(f"[3b fused kernel] S={S} f32, 30 iterations, ms per call: kernel "
             f"{ms['kernel']}, plain {ms['plain']} (CUDA events, 3 calls each)")
+        _, nc, n1, m = args[0].shape
         del args, fns
     kernel_ms, plain_ms = times[SOCP_SIZES[-1]]
-    return dict(max_abs_err=max_abs, ms=kernel_ms, plain_ms=plain_ms)
+    return dict(max_abs_err=max_abs, ms=kernel_ms, plain_ms=plain_ms,
+                **socp_bound(SOCP_SIZES[-1], nc, n1, m, counts["num_iterations"],
+                             config.max_iterations,
+                             config.iterative_refinement_iterations))
 
 
 def phase_socp_main_path(device):
@@ -733,6 +802,122 @@ def phase_soc_known_answer(device):
         fail("the SOC known answer does not hold on the card")
 
 
+# ---------------------------------------------------------------------------
+# The Schur-phase probes (kernels K3-K6)
+# ---------------------------------------------------------------------------
+
+
+def probe_variants():
+    """{variant: (its plain version, its kernel wrapper)} of PROBES."""
+    import importlib
+
+    out = {}
+    for name, module, _ in PROBES:
+        mod = importlib.import_module(f"conex_tpu_torch.benchmarks.{module}")
+        out[name] = (getattr(mod, f"{name}_plain"), getattr(mod, f"{name}_kernel"))
+    return out
+
+
+def phase_probe_kernels(device):
+    """Returns each probe kernel's record: max |kernel - plain| in f32 at
+    the probe shape, and the CUDA-event times of both there."""
+    import torch
+
+    from conex_tpu_torch.benchmarks import dev_pallas_probe
+    from conex_tpu_torch.cones import psd_schur
+
+    variants = probe_variants()
+    records = {name: {} for name in variants}
+    # m + 1 = 71 at the second shape: two 64-row tiles of the Gram matrix.
+    for label, shape in (("small", (3, 5, 13)), ("two tiles", (2, 70, 130)),
+                         ("probe", PROBE_SHAPE)):
+        A, w, C = dev_pallas_probe.probe_inputs(*shape, device)
+        A64, w64, C64 = (x.double() for x in (A, w, C))
+        for name, (plain, kernel) in variants.items():
+            want64 = plain(A64, w64, C64)
+            got64 = kernel(A64, w64, C64)
+            torch.cuda.synchronize()
+            e64 = rel_err(got64, want64)
+            msg = f"[3c probe kernels] {name} {label} B,m,n={shape}: f64 rel err {e64:.3e} (limit 1e-12)"
+            if not e64 <= 1e-12:
+                fail(f"{name}: f64 kernel disagrees with its plain version at {label}: {e64}")
+            if label == "probe":
+                got32, plain32 = kernel(A, w, C), plain(A, w, C)
+                torch.cuda.synchronize()
+                e32 = rel_err(got32, want64)
+                max_abs = max(float((g - p).abs().max()) for g, p in zip(got32, plain32))
+                msg += (f"; f32 rel err vs f64 oracle {e32:.3e} (limit 1e-4; plain f32 "
+                        f"{rel_err(plain32, want64):.3e}); f32 max |kernel - plain| "
+                        f"{max_abs:.3e}")
+                if not e32 <= 1e-4:
+                    fail(f"{name}: f32 kernel disagrees with the f64 oracle: {e32}")
+                records[name]["max_abs_err"] = max_abs
+            log(msg)
+    del got64
+
+    # K1 on the same inputs, as one program of B cones (S = 1, Bc = B).  Its
+    # Gram block sums all B n^2 terms of an output in one accumulator, so
+    # in f32 it is held only to 5e-3 (an H100 measured 2.8e-3): a limit for
+    # that known summation fault alone, which K1's redesign removes and
+    # brings back to 1e-4.  In f64 it is held to 1e-12 like the rest.
+    B, m, n = PROBE_SHAPE
+
+    def as_one_program(A, w, C):
+        return A.view(1, B, m, n, n), w.view(1, B, n, n), C.view(1, B, n, n)
+
+    k1_args = as_one_program(A, w, C)
+    e_k1 = [rel_err([x[0] for x in psd_schur.schur_kernel(*args)], want64)
+            for args in (as_one_program(A64, w64, C64), k1_args)]
+    log(f"[3c probe kernels] K1 at S=1, Bc={B}: f64 rel err {e_k1[0]:.3e} (limit "
+        f"1e-12); f32 rel err vs f64 oracle {e_k1[1]:.3e} (limit 5e-3)")
+    if not (e_k1[0] <= 1e-12 and e_k1[1] <= 5e-3):
+        fail(f"K1 at S=1 disagrees with the f64 oracle: {e_k1}")
+    del A64, w64, C64, want64
+
+    # CUDA-event times at the probe shape in f32, each kernel and its plain
+    # version in turns (plain, kernel, kernel, plain), 10 calls each.
+    for name, (plain, kernel) in variants.items():
+        ms = {"plain": [], "kernel": []}
+        fns = {"plain": lambda: plain(A, w, C), "kernel": lambda: kernel(A, w, C)}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            ms[which].append(time_ms(fns[which], 10))
+        log(f"[3c probe kernels] {name} probe shape f32 ms per call: kernel "
+            f"{ms['kernel']}, plain {ms['plain']} (CUDA events, 10 calls each)")
+        records[name].update(ms=min(ms["kernel"]), plain_ms=min(ms["plain"]),
+                             **schur_bound(B, 1, m, n))
+    einsum_ms = [time_ms(lambda: dev_pallas_probe.einsum_schur(A, w, C), 10)
+                 for _ in range(2)]
+    k1_ms = [time_ms(lambda: psd_schur.schur_kernel(*k1_args), 3) for _ in range(2)]
+    log(f"[3c probe kernels] probe shape f32 ms per call: einsum_schur {einsum_ms} "
+        f"(10 calls each), K1 at S=1, Bc={B} {k1_ms} (3 calls each); bound "
+        f"{schur_bound(B, 1, m, n)}")
+    return records
+
+
+def phase_probe_entry_points():
+    """The two probe harnesses on the card; returns each variant's kernel
+    launches in this phase."""
+    from conex_tpu_torch.benchmarks import dev_pallas_probe, dev_tpu_probe2
+    from conex_tpu_torch.cones import psd_schur
+    from conex_tpu_torch.parallel import fused_socp
+
+    kernels = {name: kernel for name, (_, kernel) in probe_variants().items()}
+    others = (psd_schur.schur_kernel, fused_socp.solve_socp_kernel)
+    for kernel in (*kernels.values(), *others):
+        kernel.launches = 0
+    t0 = time.perf_counter()
+    dev_pallas_probe.main([",".join(map(str, PROBE_SHAPE))])
+    dev_tpu_probe2.part2()
+    launches = {name: kernel.launches for name, kernel in kernels.items()}
+    log(f"[6 probe entry points] {time.perf_counter() - t0:.2f} s, kernel "
+        f"launches {launches}")
+    if not all(launches.values()):
+        fail(f"a probe variant did not launch its kernel: {launches}")
+    if any(kernel.launches for kernel in others):
+        fail("the probes launched K1 or K2")
+    return launches
+
+
 def main():
     card = card_name_and_power_limit()
     log(f"[1 card] {card}")
@@ -757,20 +942,25 @@ def main():
 
     schur = phase_kernel(device)
     fused = phase_fused_kernel(device)
+    probes = phase_probe_kernels(device)
     schur["launches"] = phase_main_path(device)
     phase_small_vs_cpu(device)
     fused["launches"] = phase_socp_main_path(device)
     phase_known_answer(device)
     phase_soc_known_answer(device)
+    for name, n in phase_probe_entry_points().items():
+        probes[name]["launches"] = n
 
     kernels = [
         dict(name="schur", route="cuda", source=SCHUR_SOURCE,
-             replaces=SCHUR_REPLACES, **schur),
+             replaces=SCHUR_REPLACES, library_ms=None, **schur),
         dict(name="fused_socp", route="cuda", source=FUSED_SOURCE,
-             replaces=FUSED_REPLACES, **fused),
-    ]
+             replaces=FUSED_REPLACES, library_ms=None, **fused),
+    ] + [dict(name=name, route="cuda", source=PROBE_SOURCE, replaces=replaces,
+              library_ms=None, **probes[name]) for name, _, replaces in PROBES]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    log(LIBRARY_NOTE)
     print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}),
           flush=True)
     print(card_name_and_power_limit(), flush=True)

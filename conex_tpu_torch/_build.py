@@ -22,13 +22,15 @@ from pathlib import Path
 from typing import NamedTuple, Optional
 
 _PKG = Path(__file__).resolve().parent
-SOURCES = (_PKG / "csrc" / "schur.cu", _PKG / "csrc" / "fused_socp.cu")
+SOURCES = tuple(_PKG / "csrc" / name for name in
+                ("schur.cu", "fused_socp.cu", "schur_probes.cu"))
 BUILD_DIR = _PKG / "_build"
 # No --use_fast_math: the kernels keep IEEE sqrt, exp and division.  No FMA
 # contraction: every product and sum is rounded on its own, as in the plain
 # versions (fused_socp.cu matches parallel/fused_socp.py::solve_socp_plain
 # to the bit).  The flag leaves explicit fma() calls alone, which schur.cu
-# makes; on an H100 it costs the fused SOCP kernel 0.5-3% (PERF.md).
+# and schur_probes.cu make; on an H100 it costs the fused SOCP kernel 0.5-3%
+# (PERF.md).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
@@ -42,6 +44,11 @@ _SCHUR_ARGTYPES = [_P] * 9 + [_I] * 4 + [_P]
 # conex_socp_fused_f{32,64}(23 device pointers, S, nc, n1, m, iparams,
 # dparams, stream); iparams and dparams are host arrays
 _SOCP_ARGTYPES = [_P] * 23 + [_I] * 4 + [_P] * 3
+# conex_probe_{a,b,b2,a2}_f{32,64}(A, W, C, X, Y, part, G, AW, AQc, wc, cqc,
+# B, m, n, stream)
+_PROBE_ARGTYPES = [_P] * 11 + [_I] * 3 + [_P]
+_PROBE_NAMES = tuple(f"conex_probe_{v}_{t}" for v in ("a", "b", "b2", "a2")
+                     for t in ("f32", "f64"))
 
 
 class Build(NamedTuple):
@@ -97,6 +104,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     for names, argtypes in (
         (("conex_schur_f32", "conex_schur_f64"), _SCHUR_ARGTYPES),
         (("conex_socp_fused_f32", "conex_socp_fused_f64"), _SOCP_ARGTYPES),
+        (_PROBE_NAMES, _PROBE_ARGTYPES),
     ):
         for name in names:
             fn = getattr(lib, name)

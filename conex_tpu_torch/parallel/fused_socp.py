@@ -543,7 +543,9 @@ def solve_socp_fused(
 
     Each scenario s is  max b[s]'y  s.t.  c[s,j] - A[s,j] y in Q^{n+1}
     for nc Lorentz cones j.  The solve runs on A's device: the CUDA kernel
-    for a CUDA tensor, ``solve_socp_plain`` for a CPU tensor.
+    for a CUDA tensor, ``solve_socp_plain`` for a CPU tensor.  An input that
+    is not a tensor follows A, and an A that is not a tensor goes to the
+    card; a caller who wants the CPU passes a CPU tensor A.
 
     Args:
       A: (S, nc, n+1, m) or (S, n+1, m) constraint operators (a tensor or
@@ -565,12 +567,12 @@ def solve_socp_fused(
     del block_size, interpret
     _check_config(config)
     if not isinstance(A, torch.Tensor):
-        A = torch.tensor(A)  # a copy: arrays may be read-only
+        A = torch.tensor(A, device="cuda")  # a copy: arrays may be read-only
     device, dtype = A.device, A.dtype
 
     def on_device(x):
         if not isinstance(x, torch.Tensor):
-            return torch.tensor(x, dtype=dtype, device=device)
+            x = torch.tensor(x, dtype=dtype, device=device)
         if x.device != device:
             raise ValueError(f"tensor on {x.device}, A on {device}")
         return x.to(dtype).contiguous()

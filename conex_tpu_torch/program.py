@@ -3,7 +3,8 @@
 Twin of the SOC and LMI subset of ``conex_tpu/program.py``: collect
 Lorentz-cone and dense LMI constraints, then solve coldstart or warmstart
 and read back the dual variables.  The other adders come with their cones
-(ROADMAP.md queue 1).  A Program runs on one device, given as ``device=``.
+(ROADMAP.md queue 1).  A Program runs on one device, given as ``device=``:
+the card (``"cuda"``) unless the caller asks for ``"cpu"``.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ class Program:
     """A conic program: maximize b'y  s.t.  c_j - A_j y in Q (Lorentz
     cones) and C - sum_i y_i A_i PSD (LMIs)."""
 
-    def __init__(self, num_vars: int, dtype=torch.float64, device="cpu"):
+    def __init__(self, num_vars: int, dtype=torch.float64, device="cuda"):
         self.num_vars = int(num_vars)
         self.dtype = dtype
         self.device = torch.device(device)

@@ -40,8 +40,8 @@ from test_torch_soc import _close_per_scenario, random_socp
 def _run_both(A, c, b, cfg, **init):
     """(JAX result, port result) of solve_socp_fused, both as numpy."""
     rj = jfused(A, c, b, JConfig(**cfg), **init)
-    rt = solve_socp_fused(A, c, b, ct.SolverConfig(**cfg),
-                          **{k: np.asarray(v) for k, v in init.items()})
+    rt = solve_socp_fused(*map(convert.tensor, (A, c, b)), ct.SolverConfig(**cfg),
+                          **{k: convert.tensor(v) for k, v in init.items()})
     return jax.tree.map(np.asarray, rj), convert.to_numpy(rt)
 
 
@@ -138,15 +138,16 @@ def test_fused_3d_shorthand_matches_jax():
     (the JAX package pads to 128 lanes; the port needs no padding)."""
     A, c, b = random_socp(np.random.default_rng(31), S=5, nc=1, n=3, m=2)
     rj, rt4 = _run_both(A, c, b, CFG)
-    rt3 = convert.to_numpy(solve_socp_fused(A[:, 0], c[:, 0], b, ct.SolverConfig(**CFG),
-                                            block_size=128, interpret=True))
+    rt3 = convert.to_numpy(solve_socp_fused(
+        *map(convert.tensor, (A[:, 0], c[:, 0], b)), ct.SolverConfig(**CFG),
+        block_size=128, interpret=True))
     for f3, f4 in zip(rt3, rt4):
         np.testing.assert_array_equal(f3, f4)
     _assert_same(rj, rt4)
 
 
 def test_fused_config_validation():
-    A, c, b = random_socp(np.random.default_rng(1), S=2, nc=1, n=3, m=2)
+    A, c, b = map(convert.tensor, random_socp(np.random.default_rng(1), S=2, nc=1, n=3, m=2))
     with pytest.raises(ValueError, match="divergence-mode"):
         solve_socp_fused(A, c, b, ct.SolverConfig(enable_line_search=True))
     with pytest.raises(ValueError, match="LLT only"):
@@ -166,6 +167,23 @@ def test_cpu_tensors_take_the_plain_version_and_the_kernel_refuses_them():
     with pytest.raises(ValueError, match="tensor on"):
         solve_socp_fused(A, c, torch.ones(3, 2, dtype=torch.float64, device="meta"),
                          ct.SolverConfig())
+
+
+def test_arrays_go_to_the_card(monkeypatch):
+    """Inputs that are not tensors go to the card, never to the CPU: with
+    no card the call raises, and the plain version is not reached."""
+    A, c, b = random_socp(np.random.default_rng(4), S=3, nc=1, n=3, m=2)
+    cfg = ct.SolverConfig(max_iterations=5)
+    if torch.cuda.is_available():
+        assert solve_socp_fused(A, c, b, cfg).y.device.type == "cuda"
+        return
+
+    def no_cpu_solve(*args):
+        raise AssertionError("array inputs reached the CPU solve")
+
+    monkeypatch.setattr(fused_socp, "solve_socp_plain", no_cpu_solve)
+    with pytest.raises((RuntimeError, AssertionError), match="CUDA"):
+        solve_socp_fused(A, c, b, cfg)
 
 
 # The kernel against its plain version in f32, relative: the two round

@@ -337,7 +337,7 @@ def test_program_soc_known_answer_matches_jax():
     jp = conex_tpu.Program(4)
     jp.add_soc_constraint(A, c)
     jr = jp.solve(b, conex_tpu.SolverConfig(**cfg))
-    tp = ct.Program(4)
+    tp = ct.Program(4, device="cpu")
     assert tp.add_soc_constraint(A, c) == 0
     tr = tp.solve(b, ct.SolverConfig(**cfg))
     assert tr.solved and jr.solved
@@ -361,13 +361,13 @@ def test_program_soc_known_answer_matches_jax():
 
 def test_program_soc_shape_errors():
     A, c, b = _unit_ball(m=3)
-    p = ct.Program(3)
+    p = ct.Program(3, device="cpu")
     with pytest.raises(ValueError, match="batch/cone dimensions must match"):
         p.add_soc_constraint(A, c[:-1])
     with pytest.raises(ValueError, match="batch/cone dimensions must match"):
         p.add_soc_constraint(np.stack([A, A]), c[None])
     with pytest.raises(ValueError, match="more variables"):
-        ct.Program(2).add_soc_constraint(A, c)
+        ct.Program(2, device="cpu").add_soc_constraint(A, c)
     with pytest.raises(ValueError, match="duplicate"):
         p.add_soc_constraint(A, c, variables=[0, 0, 1])
     with pytest.raises(NotImplementedError, match="item 13"):

@@ -217,7 +217,7 @@ def test_program_known_answer_matches_jax():
     jp = conex_tpu.Program(1)
     jp.add_lmi_constraint(A, C)
     jr = jp.solve(np.ones(1), conex_tpu.SolverConfig(**cfg))
-    tp = ct.Program(1)
+    tp = ct.Program(1, device="cpu")
     tp.add_lmi_constraint(A, C)
     tr = tp.solve(np.ones(1), ct.SolverConfig(**cfg))
     assert tr.solved and jr.solved
@@ -239,7 +239,7 @@ def test_program_known_answer_matches_jax():
 
 def test_program_rejects_what_is_not_ported():
     A, C, _ = _lambda_min_sdp(n=3)
-    p = ct.Program(2)
+    p = ct.Program(2, device="cpu")
     with pytest.raises(NotImplementedError, match="item 13"):
         p.add_lmi_constraint(A, C, variables=[1])
     with pytest.raises(ValueError, match="symmetric"):
@@ -249,6 +249,11 @@ def test_program_rejects_what_is_not_ported():
     p.add_lmi_constraint(A, C)
     with pytest.raises(ValueError, match="dimension"):
         p.solve(np.ones(3))
+
+
+def test_program_runs_on_the_card_unless_asked_for_the_cpu():
+    assert ct.Program(1).device.type == "cuda"
+    assert ct.Program(1, device="cpu").device.type == "cpu"
 
 
 def test_unsupported_options_raise_naming_roadmap_items():

@@ -1,14 +1,14 @@
 """What the port's kernel build costs, and where the SOCP path's time goes.
 
-    python3 tools/kernel_costs.py
+    python3 tools/kernel_costs.py [build] [fma] [profile] [probes]
 
-Needs one CUDA card and nvcc; imports nothing of JAX.  Three parts, each
-printing its own lines:
+Needs one CUDA card and nvcc; imports nothing of JAX.  Four parts (all of
+them when none is named), each printing its own lines:
 
 1. build: the nvcc wall time of the library as ``conex_tpu_torch._build``
    builds it (one nvcc per source, in parallel, then a link), beside one
-   nvcc call that compiles both sources in turn;
-2. FMA: both kernels built twice more, with the product build's flags
+   nvcc call that compiles the sources in turn;
+2. FMA: the library built twice more, with the product build's flags
    (``-fmad=false``) and with FMA contraction (nvcc's default); CUDA-event times
    of the Schur kernel (K1) at bench.py's shape and of the fused SOCP
    kernel (K2) on bench_socp's workload at S = 1,000, 10,000, 100,000, in
@@ -18,9 +18,16 @@ printing its own lines:
    solve_socp_fused at S = 1,000 and 100,000 and through solve_scenarios
    with SOCCone at S = 10,000: the unprofiled wall (best of 3), the
    device-kernel time, its share of that wall, the kernel launches, and the
-   largest kernels.
+   largest kernels;
+4. probes: the same profile of one call of each Schur probe kernel
+   (K3-K6), of its plain version and of K1 as one program (S = 1, Bc =
+   256), on the probes' inputs at B = 256, m = 50, n = 100, f32: where
+   each call's time goes, launch by launch.
 
-Run from the repository root.  The extra libraries go to
+A run of all four parts holds the card for several minutes (part 2 builds
+the library twice); naming parts runs only those, so a question about one
+of them costs the card time of that part alone (``probes`` alone: about
+30 s).  Run from the repository root.  The extra libraries go to
 ``conex_tpu_torch/_build/`` beside the product build.
 """
 
@@ -44,7 +51,7 @@ def log(msg):
 
 
 def compile_library(name, flags):
-    """Both sources compiled with ``flags``, one nvcc each in parallel, and
+    """The sources compiled with ``flags``, one nvcc each in parallel, and
     linked into BUILD_DIR/<name>.so; a loaded Build."""
     from conex_tpu_torch import _build
 
@@ -72,7 +79,7 @@ def part_build():
     t0 = time.perf_counter()
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(out),
                     *map(str, _build.SOURCES)], check=True, capture_output=True)
-    log(f"[build] one nvcc call over both sources: {time.perf_counter() - t0:.2f} s")
+    log(f"[build] one nvcc call over the sources: {time.perf_counter() - t0:.2f} s")
 
 
 def part_fma(device):
@@ -181,17 +188,37 @@ def part_profile(device):
             lambda: solve_scenarios((SOCCone(A=A, c=c),), (), b, (w0,), scalars, config))
 
 
-def main():
+def part_probes(device):
+    from conex_tpu_torch.benchmarks import dev_pallas_probe
+    from conex_tpu_torch.cones import psd_schur
+
+    B, m, n = chip_smoke.PROBE_SHAPE
+    A, w, C = dev_pallas_probe.probe_inputs(B, m, n, device)
+    for name, (plain, kernel) in chip_smoke.probe_variants().items():
+        profile(f"{name} kernel", lambda: kernel(A, w, C))
+        profile(f"{name}_plain", lambda: plain(A, w, C))
+    profile(f"K1 S=1, Bc={B}", lambda: psd_schur.schur_kernel(
+        A.view(1, B, m, n, n), w.view(1, B, n, n), C.view(1, B, n, n)))
+
+
+PARTS = {"build": lambda device: part_build(), "fma": part_fma,
+         "profile": part_profile, "probes": part_probes}
+
+
+def main(argv=None):
     import torch
 
+    names = (sys.argv[1:] if argv is None else argv) or list(PARTS)
+    unknown = set(names) - set(PARTS)
+    if unknown:
+        sys.exit(f"unknown parts {sorted(unknown)}; the parts are {list(PARTS)}")
     if not torch.cuda.is_available():
         sys.exit("torch.cuda.is_available() is False: this script needs a CUDA card")
     log(f"[card] {chip_smoke.card_name_and_power_limit()}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     device = torch.device("cuda", 0)
-    part_build()
-    part_fma(device)
-    part_profile(device)
+    for name in names:
+        PARTS[name](device)
 
 
 if __name__ == "__main__":
