@@ -8,11 +8,13 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. build: the three sources (csrc/schur.cu, csrc/fused_socp.cu and
    csrc/schur_probes.cu) with nvcc, with the build time and ptxas's
    registers, shared memory, stack frame and spills for every entry;
-3. Schur kernel against plain: the CUDA Schur kernel against schur_plain
-   on the card, in f64 (relative Frobenius error <= 1e-12) and in f32
-   against an f64 oracle (<= 1e-4, a sum of up to 10^4 f32 terms), at a
-   small shape and at the benchmark shape; CUDA-event times of both at the
-   benchmark shape;
+3. Schur kernel against plain: the CUDA Schur kernel (K1) against
+   schur_plain on the card, in f64 (relative Frobenius error <= 1e-12) and
+   in f32 against an f64 oracle (<= 1e-4), at four shapes (S, Bc, m, n): a
+   small one (3, 2, 4, 13), many cones (2, 64, 20, 100), m + 1 above one
+   Gram tile with a ragged n (3, 2, 70, 130), and the benchmark shape
+   (256, 1, 50, 100); two kernel calls at the benchmark shape must give
+   the same bits; CUDA-event times of both there, in turns;
 3b. fused SOCP kernel against plain: the CUDA kernel against
    solve_socp_plain on the card, every field of FusedSOCPResult: iteration
    counts and status flags identical, the floating fields (y, y_kkt, w, k,
@@ -33,9 +35,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    Frobenius error <= 1e-12) at two small shapes (one with two tiles of
    the Gram matrix) and at the probe shape
    (B=256, m=50, n=100), in f32 against the f64 plain version (<= 1e-4) at
-   the probe shape; CUDA-event times at the probe shape in f32 of each
-   kernel and its plain version, of the einsum_schur twin, and of K1 on the
-   same inputs as one program of 256 cones (S=1, Bc=256);
+   the probe shape; K1 on the same inputs as one program of 256 cones
+   (S=1, Bc=256) against the same f64 oracle, with the same limits, and
+   two of its f32 calls must give the same bits;
+   CUDA-event times at the probe shape in f32 of each kernel and its plain
+   version, and of the einsum_schur twin against K1 at S=1, in turns;
 4. the SDP main path: bench.py's workload (B=256 dense SDPs, n=100, m=50,
    f32, 30 fixed Newton iterations) through conex_tpu_torch.solve_scenarios:
    every scenario must run exactly 30 iterations without a factorization
@@ -58,9 +62,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    must launch.
 
 The last lines are the kernels' JSON record (with each kernel's bound:
-the larger of its operations over the H100's 67 TFLOP/s of float32 and
-its bytes over 3.35 TB/s), the card's name and power limit, and
-{"ok": true, "device": {...}}.  Imports nothing of JAX.
+the larger of its operations over the peak rate of the units that do
+them and its bytes over 3.35 TB/s; K1's products run on the tensor cores,
+three TF32 passes per f32 product at 495 TFLOP/s, the other kernels' on
+CUDA cores at 67 TFLOP/s of float32), the card's name and power limit,
+and {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 import json
@@ -80,8 +86,11 @@ PROBES = (("fused_a", "dev_pallas_probe", "benchmarks/dev_pallas_probe.py:37"),
           ("fused_a2", "dev_tpu_probe2", "benchmarks/dev_tpu_probe2.py:180"))
 PROBE_SHAPE = (256, 50, 100)  # B, m, n: dev_pallas_probe.py:208
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
-# float32 outside the tensor cores, and device memory.
+# float32 outside the tensor cores, TF32 and float64 on the tensor cores,
+# and device memory.
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
+F64_TENSOR_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 LIBRARY_NOTE = ("library_ms is null for every kernel: no single PyTorch call "
                 "computes the five Schur outputs (K1, K3-K6) or the SOCP "
@@ -102,24 +111,31 @@ F64_LIMIT = 1e-8
 F32_LIMIT = 1e-6
 
 
-def bound(ops, nbytes):
-    """The least time the card could take: operations over the float32
-    peak or bytes over the memory rate, whichever is larger."""
-    t_ops, t_bytes = ops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
+def bound(ops, nbytes, flops=F32_FLOPS):
+    """The least time the card could take: operations over the peak rate
+    ``flops`` of the units that do them, or bytes over the memory rate,
+    whichever is larger."""
+    t_ops, t_bytes = ops / flops, nbytes / HBM_BYTES_PER_S
     return dict(bound_ms=1e3 * max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
-def schur_bound(cones, programs, m, n, itemsize=4):
+def schur_bound(cones, programs, m, n, itemsize=4, tensor_cores=False):
     """K1, K3-K6: per cone the m+1 panels Op_v W (C W as operator m),
     2 (m+1) n^3, and one triangle of the extended Gram matrix over them,
     2 (m+1)(m+2)/2 n^2 (it is symmetric for any inputs: a trace is unchanged
     by cycling its factors); A, W and C read once, G, AW, AQc, wc, cqc of
-    each program written once."""
+    each program written once.  ``tensor_cores``: the products run there,
+    as in K1: three TF32 passes per f32 product at TF32's rate, or float64
+    at the DMMA rate; else on CUDA cores at float32's rate."""
     ops = (2 * cones * (m + 1) * n**3
            + 2 * cones * ((m + 1) * (m + 2) // 2) * n**2)
     nbytes = itemsize * (cones * (m + 2) * n * n + programs * (m * m + 2 * m + 2))
-    return bound(ops, nbytes)
+    if not tensor_cores:
+        return bound(ops, nbytes)
+    if itemsize == 4:
+        return bound(3 * ops, nbytes, TF32_FLOPS)
+    return bound(ops, nbytes, F64_TENSOR_FLOPS)
 
 
 def socp_bound(S, nc, n1, m, iterations, T, refine, itemsize=4):
@@ -215,7 +231,8 @@ def phase_kernel(device):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     record = {}
-    for label, shape in (("small", (3, 2, 4, 13)), ("bench", (256, 1, 50, 100))):
+    for label, shape in (("small", (3, 2, 4, 13)), ("many cones", (2, 64, 20, 100)),
+                         ("two tiles", (3, 2, 70, 130)), ("bench", (256, 1, 50, 100))):
         A, W, C = schur_inputs(*shape, seed=1, device=device)
         got64 = psd_schur.schur_kernel(A, W, C)
         want64 = psd_schur.schur_plain(A, W, C)
@@ -238,16 +255,23 @@ def phase_kernel(device):
             fail(f"f32 kernel disagrees with the f64 oracle at {label}: {e32}")
         record = dict(max_abs_err=max_abs)
         del got64, want64, oracle
+    again = psd_schur.schur_kernel(A32, W32, C32)
+    torch.cuda.synchronize()
+    same = all(torch.equal(g, a) for g, a in zip(got32, again))
+    log(f"[3 kernel] bench shape f32: two kernel calls give the same bits: {same}")
+    if not same:
+        fail("two kernel calls at the bench shape differ")
     # Time both at the benchmark shape, in turns: plain, kernel, kernel, plain.
     ms = {"plain": [], "kernel": []}
     fns = {"plain": lambda: psd_schur.schur_plain(A32, W32, C32),
            "kernel": lambda: psd_schur.schur_kernel(A32, W32, C32)}
     for name in ("plain", "kernel", "kernel", "plain"):
         ms[name].append(time_ms(fns[name], 10))
+    tensor = schur_bound(256, 256, 50, 100, tensor_cores=True)
     log(f"[3 kernel] bench shape f32 ms per call: kernel {ms['kernel']}, "
-        f"plain {ms['plain']} (CUDA events, 10 calls each)")
-    record.update(ms=min(ms["kernel"]), plain_ms=min(ms["plain"]),
-                  **schur_bound(256, 256, 50, 100))
+        f"plain {ms['plain']} (CUDA events, 10 calls each); bound on the "
+        f"tensor cores {tensor}, on CUDA cores {schur_bound(256, 256, 50, 100)}")
+    record.update(ms=min(ms["kernel"]), plain_ms=min(ms["plain"]), **tensor)
     return record
 
 
@@ -855,23 +879,26 @@ def phase_probe_kernels(device):
             log(msg)
     del got64
 
-    # K1 on the same inputs, as one program of B cones (S = 1, Bc = B).  Its
-    # Gram block sums all B n^2 terms of an output in one accumulator, so
-    # in f32 it is held only to 5e-3 (an H100 measured 2.8e-3): a limit for
-    # that known summation fault alone, which K1's redesign removes and
-    # brings back to 1e-4.  In f64 it is held to 1e-12 like the rest.
+    # K1 on the same inputs, as one program of B cones (S = 1, Bc = B).
     B, m, n = PROBE_SHAPE
 
     def as_one_program(A, w, C):
         return A.view(1, B, m, n, n), w.view(1, B, n, n), C.view(1, B, n, n)
 
     k1_args = as_one_program(A, w, C)
-    e_k1 = [rel_err([x[0] for x in psd_schur.schur_kernel(*args)], want64)
-            for args in (as_one_program(A64, w64, C64), k1_args)]
-    log(f"[3c probe kernels] K1 at S=1, Bc={B}: f64 rel err {e_k1[0]:.3e} (limit "
-        f"1e-12); f32 rel err vs f64 oracle {e_k1[1]:.3e} (limit 5e-3)")
-    if not (e_k1[0] <= 1e-12 and e_k1[1] <= 5e-3):
-        fail(f"K1 at S=1 disagrees with the f64 oracle: {e_k1}")
+    e64 = rel_err([x[0] for x in psd_schur.schur_kernel(
+        *as_one_program(A64, w64, C64))], want64)
+    got32, again = (psd_schur.schur_kernel(*k1_args) for _ in range(2))
+    torch.cuda.synchronize()
+    e32 = rel_err([x[0] for x in got32], want64)
+    same = all(torch.equal(g, a) for g, a in zip(got32, again))
+    log(f"[3c probe kernels] K1 at S=1, Bc={B}: f64 rel err {e64:.3e} (limit "
+        f"1e-12); f32 rel err vs f64 oracle {e32:.3e} (limit 1e-4); two f32 "
+        f"calls give the same bits: {same}")
+    if not (e64 <= 1e-12 and e32 <= 1e-4 and same):
+        fail(f"K1 at S=1 disagrees with the f64 oracle or with itself: "
+             f"{e64}, {e32}, same bits {same}")
+    del got32, again
     del A64, w64, C64, want64
 
     # CUDA-event times at the probe shape in f32, each kernel and its plain
@@ -885,12 +912,14 @@ def phase_probe_kernels(device):
             f"{ms['kernel']}, plain {ms['plain']} (CUDA events, 10 calls each)")
         records[name].update(ms=min(ms["kernel"]), plain_ms=min(ms["plain"]),
                              **schur_bound(B, 1, m, n))
-    einsum_ms = [time_ms(lambda: dev_pallas_probe.einsum_schur(A, w, C), 10)
-                 for _ in range(2)]
-    k1_ms = [time_ms(lambda: psd_schur.schur_kernel(*k1_args), 3) for _ in range(2)]
-    log(f"[3c probe kernels] probe shape f32 ms per call: einsum_schur {einsum_ms} "
-        f"(10 calls each), K1 at S=1, Bc={B} {k1_ms} (3 calls each); bound "
-        f"{schur_bound(B, 1, m, n)}")
+    ms = {"einsum_schur": [], "K1": []}
+    fns = {"einsum_schur": lambda: dev_pallas_probe.einsum_schur(A, w, C),
+           "K1": lambda: psd_schur.schur_kernel(*k1_args)}
+    for which in ("einsum_schur", "K1", "K1", "einsum_schur"):
+        ms[which].append(time_ms(fns[which], 10))
+    log(f"[3c probe kernels] probe shape f32 ms per call: einsum_schur "
+        f"{ms['einsum_schur']}, K1 at S=1, Bc={B} {ms['K1']} (CUDA events, 10 "
+        f"calls each); K1's bound {schur_bound(B, 1, m, n, tensor_cores=True)}")
     return records
 
 

@@ -39,8 +39,9 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# conex_schur_f{32,64}(A, W, C, P, G, AW, AQc, wc, cqc, S, Bc, m, n, stream)
-_SCHUR_ARGTYPES = [_P] * 9 + [_I] * 4 + [_P]
+# conex_schur_f{32,64}(A, W, C, P, part, G, AW, AQc, wc, cqc, S, Bc, m, n,
+# Q, D, R, stream)
+_SCHUR_ARGTYPES = [_P] * 10 + [_I] * 7 + [_P]
 # conex_socp_fused_f{32,64}(23 device pointers, S, nc, n1, m, iparams,
 # dparams, stream); iparams and dparams are host arrays
 _SOCP_ARGTYPES = [_P] * 23 + [_I] * 4 + [_P] * 3

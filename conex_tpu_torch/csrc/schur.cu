@@ -8,256 +8,723 @@
 //   AQc_v = tr(C W A_v W)          wc   = tr(C W)      cqc = tr(C W C W)
 //
 // C is treated as operator number m (no copy of A is made), so with the
-// panel P_v = Op_v W, v = 0..m, every output is a Frobenius product
-// <P_v, P_u^T> = sum_ik P_v[i,k] P_u[k,i] of two panel rows, or a trace:
-// G_vu = <P_v, P_u^T>, AQc_v = <P_m, P_v^T>, cqc = <P_m, P_m^T>,
-// AW_v = tr P_v, wc = tr P_m.
-//
-// Two launches:
-//   1. panel_kernel: one tiled GEMM per (scenario, cone, operator) writes
-//      P (S, Bc, m+1, n, n) to a scratch buffer the caller allocates.
-//   2. gram_kernel: one block per (scenario, 64x64 tile of the extended
-//      (m+1)x(m+1) Gram matrix) reads the panel rows of its tile, sums over
-//      cones and (i, k), and writes G, AQc and cqc; the blocks of the first
-//      tile column also take the traces AW and wc.
-// Every output element is summed by one thread in a fixed order: no atomics,
-// so the result is the same from run to run.
+// panel P_v = Op_v W, v = 0..m, every output is an entry of the extended
+// Gram matrix E_vu = <P_v, P_u^T> = sum_ik P_v[i,k] P_u[k,i] or a trace:
+// G = E[:m, :m], AQc_v = E_vm, cqc = E_mm, AW_v = tr P_v, wc = tr P_m.
+// E is symmetric for any A, W and C (a trace is unchanged by cycling its
+// factors); the kernel assumes no symmetry of A, W or C.
 //
 // What bounds it.  At the benchmark shape (S=256, Bc=1, m=50, n=100, f32)
-// A is 512 MB and the panel 522 MB, against 39 GFLOP in the two launches:
-// 26 GFLOP for the panel products and 13 GFLOP for the Gram sums.  That is
-// about 25 FLOP per byte of A read, panel written and panel read, close to
-// the H100's float32 CUDA-core balance (67 TFLOP/s over 3.35 TB/s, 20
-// FLOP/byte), so both the bytes of A and of the panel and the arithmetic
-// matter.  Its design keeps the traffic at one read of A and W and one
-// write and one read of the panel: each Gram block covers 64 rows, all
-// m+1 = 51 of its scenario, so the panel is read once.  The arithmetic
-// runs on CUDA cores from shared memory, with a 4 x 4 register tile per
-// thread (two shared loads per four multiply-adds); the 64-wide tiles are
-// ragged at n = 100 and m + 1 = 51 (61% and 63% of the tile is used).
-// Keeping the panel out of device memory (as the TPU kernel does in VMEM),
-// exploiting the symmetry of G and moving the products onto the tensor
-// cores (wgmma, TMA) are later work.
+// the work is 26.1 GFLOP of panel products and 6.8 GFLOP for one triangle
+// of E, against 0.53 GB of inputs and outputs.  On CUDA cores (67 TFLOP/s)
+// that is 0.49 ms of operations; on the tensor cores, three TF32 products
+// per f32 product at 495 TFLOP/s, 0.20 ms, above the 0.16 ms of the bytes.
+// As built, the panel goes through device memory: A and C read (0.53 GB),
+// P written (0.57 GB, padded to n = 104) and read back (0.61 GB), 1.7 GB
+// or 0.51 ms at 3.35 TB/s.  Chunks of cones whose panel stays in the 50 MB
+// L2 cache measured slower than one chunk (the tails of many short
+// launches), so the plan takes one chunk up to a cap on the scratch.
+//
+// The design.
+//  * Precision.  f32: each operand x is split into hi = tf32(x) and
+//    lo = tf32(x - hi), both rounded to nearest (ties away, as
+//    cvt.rna.tf32.f32), and a product is lo*hi + hi*lo + hi*hi, three
+//    m16n8k8 TF32 mma into an f32 accumulator: about f32 accuracy (one
+//    TF32 pass keeps three digits, which the workload cannot take).  The
+//    tensor cores add into the accumulator rounding toward zero, so the
+//    Gram sums each unit of depth apart and adds the units on CUDA cores.
+//    f64: m8n8k4 DMMA.
+//  * Chunks.  The cones (flat index s Bc + b) go in chunks whose panel fits
+//    the scratch (cones/psd_schur.py::schur_plan); per chunk one panel
+//    launch writes it and one Gram launch reads it back.
+//  * Panel.  One block of 7 warps per (cone, operator, 112 x 104 tile of
+//    P): at n = 100 one tile covers the whole product (89% and 96% of the
+//    tile's rows and columns are used); K goes in slabs (32 deep in f32,
+//    16 in f64) through a three-stage cp.async ring.  P is stored in 8 x 8
+//    blocks, each 64 consecutive elements, zero past n.
+//  * Gram.  E = M + M^T, where M sums over units of depth: unit (I, K),
+//    I <= K, pairs the 8 x 8 blocks (I, K) and (K, I) of i and k, whose
+//    contributions to E are transposes of each other (see the Gram
+//    section).  So each block of P is read once, and the mirrored half of
+//    E costs nothing.  One block of 4 warps per (cone, 64 x 64 tile of M,
+//    depth chunk of units): at m + 1 = 51 one tile covers M (80% of its
+//    rows and columns are used); each warp takes 16 rows, all columns.
+//    Three cp.async stages of 16-byte copies.  Spreading cones and depth
+//    chunks over blocks fills the card at S = 1 as at S = 256.
+//  * Sum.  When a block holds a scenario's whole sum (Bc = 1, one depth
+//    chunk, one tile) it writes G, AQc, cqc, AW and wc itself; otherwise
+//    it writes a partial (its tile of M, and the traces of its depth chunk)
+//    and reduce_kernel adds each scenario's partials in a fixed order.  No
+//    atomics: the same bits every run.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16 threads, each owning 4 x 4 outputs
-
-// Panel GEMM tile: PT x PT outputs, PK-deep slices of the contraction.
-constexpr int PT = 64;
-constexpr int PK = 16;
-
-// Gram tile: GT x GT outputs; each step stages GI x GK (i, k) pairs.
+constexpr int kWarp = 32;
+// Panel tile: PR x PC outputs, one 16-row stripe per warp.
+constexpr int PR = 112;
+constexpr int PC = 104;
+constexpr int kPanelThreads = (PR / 16) * kWarp;
+constexpr int kPanelStages = 3;
+// Gram tile: GT x GT entries; a unit of depth is BI x BI pairs (i, k).
 constexpr int GT = 64;
-constexpr int GI = 4;
-constexpr int GK = 8;
-constexpr int GL = GI * GK;
+constexpr int BI = 8;
+constexpr int kGramWarps = 4;  // a warp takes GT / 4 rows of a tile
+constexpr int kGramThreads = kGramWarps * kWarp;
+constexpr int kGramStages = 3;
+constexpr int kReduceThreads = 256;
 
-__device__ __forceinline__ float madd(float a, float b, float c) {
-  return fmaf(a, b, c);
-}
-__device__ __forceinline__ double madd(double a, double b, double c) {
-  return fma(a, b, c);
+__host__ __device__ __forceinline__ int cdiv(int a, int b) {
+  return (a + b - 1) / b;
 }
 
-// P[sb, v] = Op_v @ W[sb] for v < m (Op_v = A[sb, v]) and v = m (Op_m = C[sb]).
-// grid: (S * Bc, m + 1, tiles_n * tiles_n).
+// ---- cp.async -------------------------------------------------------------
+
+// Copy VW elements global -> shared (16 bytes aligned when VW > 1), or
+// write zeros when !in.
+template <int VW, typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src, bool in) {
+  constexpr int kBytes = VW * int(sizeof(T));
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(in ? 16 : 0));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+                 "l"(src), "n"(kBytes), "r"(in ? kBytes : 0));
+  }
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- tensor-core fragments ------------------------------------------------
+
+// tf32(x) rounded to nearest, ties away from zero, on the 13 dropped bits.
+__device__ __forceinline__ uint32_t tf32_round(float x) {
+  const uint32_t u = __float_as_uint(x);
+  return (u + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_round(x);
+  lo = tf32_round(x - __uint_as_float(hi));
+}
+
+// Not volatile: the compiler may interleave independent products.
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_f64(double* c, double a, double b) {
+  asm(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1}, {%2}, {%3}, {%0, %1};\n"
+      : "+d"(c[0]), "+d"(c[1])
+      : "d"(a), "d"(b));
+}
+
+// One warp's M x N x K product step.  load_a(a, lane, f) fills the A
+// fragment from f(row, k), load_b(b, lane, f) the B fragment from f(k, col),
+// store(c, lane, f) hands each accumulator to f(row, col, value); the
+// (row, col) of each register are those of the PTX ISA's fragment layouts.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+struct Mma;
+
+template <>
+struct Mma<float> {
+  static constexpr int M = 16, N = 8, K = 8;
+  static constexpr int KS = 32;  // panel slab depth
+  // The tensor cores add into an f32 accumulator rounding toward zero, so
+  // a long sum drifts; the Gram sums each unit apart and adds the units
+  // on CUDA cores, rounded to nearest.
+  static constexpr bool kUnitSums = true;
+  struct A { uint32_t hi[4], lo[4]; };
+  struct B { uint32_t hi[2], lo[2]; };
+  struct C { float c[4]; };
+  __device__ static void zero(C& c) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) c.c[r] = 0.0f;
+  }
+  __device__ static void add(C& c, const C& x) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) c.c[r] += x.c[r];
+  }
+  template <class F>
+  __device__ static void load_a(A& a, int lane, F f) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split(f(g + 8 * (r & 1), t + 4 * (r >> 1)), a.hi[r], a.lo[r]);
+  }
+  template <class F>
+  __device__ static void load_b(B& b, int lane, F f) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) split(f(t + 4 * r, g), b.hi[r], b.lo[r]);
+  }
+  // Pass 0, 1, 2 adds lo*hi, hi*lo, hi*hi: the small terms first.  The
+  // kernels run each pass over all their fragments before the next, so
+  // that no product waits on the one before it.
+  static constexpr int kPasses = 3;
+  __device__ static void mma(int pass, C& c, const A& a, const B& b) {
+    if (pass == 0) {
+      mma_tf32(c.c, a.lo, b.hi);
+    } else if (pass == 1) {
+      mma_tf32(c.c, a.hi, b.lo);
+    } else {
+      mma_tf32(c.c, a.hi, b.hi);
+    }
+  }
+  template <class F>
+  __device__ static void store(const C& c, int lane, F f) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) f(g + 8 * (r >> 1), 2 * t + (r & 1), c.c[r]);
+  }
+  // f(row, col, x at col, x at col + 1), col even.
+  template <class F>
+  __device__ static void store_pairs(const C& c, int lane, F f) {
+    const int g = lane >> 2, t = lane & 3;
+    f(g, 2 * t, c.c[0], c.c[1]);
+    f(g + 8, 2 * t, c.c[2], c.c[3]);
+  }
+};
+
+template <>
+struct Mma<double> {
+  static constexpr int M = 8, N = 8, K = 4;
+  static constexpr int KS = 16;
+  static constexpr bool kUnitSums = false;  // DMMA rounds to nearest
+  struct A { double x; };
+  struct B { double x; };
+  struct C { double c[2]; };
+  __device__ static void zero(C& c) { c.c[0] = c.c[1] = 0.0; }
+  __device__ static void add(C& c, const C& x) {
+    c.c[0] += x.c[0];
+    c.c[1] += x.c[1];
+  }
+  template <class F>
+  __device__ static void load_a(A& a, int lane, F f) {
+    a.x = f(lane >> 2, lane & 3);
+  }
+  template <class F>
+  __device__ static void load_b(B& b, int lane, F f) {
+    b.x = f(lane & 3, lane >> 2);
+  }
+  static constexpr int kPasses = 1;
+  __device__ static void mma(int, C& c, const A& a, const B& b) {
+    mma_f64(c.c, a.x, b.x);
+  }
+  template <class F>
+  __device__ static void store(const C& c, int lane, F f) {
+    const int g = lane >> 2, t = lane & 3;
+    f(g, 2 * t, c.c[0]);
+    f(g, 2 * t + 1, c.c[1]);
+  }
+  template <class F>
+  __device__ static void store_pairs(const C& c, int lane, F f) {
+    f(lane >> 2, 2 * (lane & 3), c.c[0], c.c[1]);
+  }
+};
+
+// a if kFirst, else b.
+template <bool kFirst, class X>
+__device__ __forceinline__ X& pick(X& a, X& b) {
+  if constexpr (kFirst) {
+    return a;
+  } else {
+    return b;
+  }
+}
+
+// ---- panel ----------------------------------------------------------------
+
+template <typename T>
+__host__ __device__ constexpr int panel_stage() {  // As [PR][KS + 4], then Ws [KS][PC]
+  return PR * (Mma<T>::KS + 4) + Mma<T>::KS * PC;
+}
+
+// P[q, v] = Op_v W of cone c0 + q, for v < m (Op_v = A[cone, v]) and v = m
+// (Op_m = C[cone]), stored in BI x BI blocks: P_v is (nb, nb, BI, BI),
+// nb = cdiv(n, BI), with zeros past n.  grid: (count (m + 1), tiles of P;
+// they cover rows and columns up to BI nb); dynamic shared memory:
+// kPanelStages stages.  VW: elements per copy (16 bytes when n allows).
+template <typename T, int VW>
+__global__ void __launch_bounds__(kPanelThreads, sizeof(T) == 4 ? 2 : 1)
 panel_kernel(const T* __restrict__ A, const T* __restrict__ C,
-             const T* __restrict__ W, T* __restrict__ P, int m, int n,
-             int tiles_n) {
-  const int64_t sb = blockIdx.x;
-  const int v = blockIdx.y;
-  const int r0 = (blockIdx.z / tiles_n) * PT;
-  const int c0 = (blockIdx.z % tiles_n) * PT;
-  const int64_t nn = static_cast<int64_t>(n) * n;
-  const T* op = (v < m) ? A + (sb * m + v) * nn : C + sb * nn;
-  const T* w = W + sb * nn;
-  T* out = P + (sb * (m + 1) + v) * nn;
+             const T* __restrict__ W, T* __restrict__ P, int64_t c0, int m,
+             int n) {
+  using F = Mma<T>;
+  constexpr int KS = F::KS, LA = KS + 4;
+  constexpr int FM = 16 / F::M, FN = PC / F::N;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
 
-  // As is stored k-major with one column of padding so that the transposed
-  // store from row-major global memory does not hit one bank 16 times.
-  __shared__ T As[PK][PT + 1];
-  __shared__ T Bs[PK][PT];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  T acc[4][4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-#pragma unroll
-    for (int p = 0; p < 4; ++p) acc[q][p] = T(0);
-
-  for (int k0 = 0; k0 < n; k0 += PK) {
-    for (int idx = tid; idx < PT * PK; idx += kThreads) {
-      const int kk = idx % PK, rr = idx / PK;
-      const int r = r0 + rr, k = k0 + kk;
-      As[kk][rr] = (r < n && k < n) ? op[static_cast<int64_t>(r) * n + k] : T(0);
-    }
-    for (int idx = tid; idx < PK * PT; idx += kThreads) {
-      const int cc = idx % PT, kk = idx / PT;
-      const int c = c0 + cc, k = k0 + kk;
-      Bs[kk][cc] = (k < n && c < n) ? w[static_cast<int64_t>(k) * n + c] : T(0);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < PK; ++kk) {
-      T a[4], b[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) a[q] = As[kk][ty + 16 * q];
-#pragma unroll
-      for (int p = 0; p < 4; ++p) b[p] = Bs[kk][tx + 16 * p];
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int p = 0; p < 4; ++p) acc[q][p] = madd(a[q], b[p], acc[q][p]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      const int r = r0 + ty + 16 * q, c = c0 + tx + 16 * p;
-      if (r < n && c < n) out[static_cast<int64_t>(r) * n + c] = acc[q][p];
-    }
-}
-
-// Extended Gram matrix E_vu = sum_b <P_v, P_u^T> over v, u = 0..m, written
-// out as G (v, u < m), AQc (v = m, u < m) and cqc (v = u = m), plus the
-// traces AW and wc.  grid: (S, tiles_g, tiles_g).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gram_kernel(const T* __restrict__ P, int Bc, int m, int n, T* __restrict__ G,
-            T* __restrict__ AW, T* __restrict__ AQc, T* __restrict__ wc,
-            T* __restrict__ cqc) {
-  const int64_t s = blockIdx.x;
-  const int v0 = blockIdx.y * GT;
-  const int u0 = blockIdx.z * GT;
   const int m1 = m + 1;
-  const int64_t nn = static_cast<int64_t>(n) * n;
+  const int64_t q = blockIdx.x / m1;
+  const int v = blockIdx.x % m1;
+  const int64_t cone = c0 + q;
+  const int tiles_c = cdiv(n, PC);
+  const int r0 = (blockIdx.y / tiles_c) * PR;
+  const int col0 = (blockIdx.y % tiles_c) * PC;
+  const int64_t nn = int64_t(n) * n;
+  const T* op = v < m ? A + (cone * m + v) * nn : C + cone * nn;
+  const T* w = W + cone * nn;
+  const int nb = cdiv(n, BI);
+  T* out = P + (q * m1 + v) * int64_t(BI * nb) * (BI * nb);
 
-  // Both stages hold element (i0 + ii, k0 + kk) of the pair sum at column
-  // ii * GK + kk: Sv from P_v[i, k], Su from P_u[k, i].  The row padding
-  // keeps the 16 rows one warp reads in distinct banks.
-  __shared__ T Sv[GT][GL + 1];
-  __shared__ T Su[GT][GL + 1];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  T acc[4][4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-#pragma unroll
-    for (int p = 0; p < 4; ++p) acc[q][p] = T(0);
+  auto load = [&](int slab, int stage) {
+    T* As = smem + stage * panel_stage<T>();
+    T* Ws = As + PR * LA;
+    const int k0 = slab * KS;
+    for (int idx = threadIdx.x; idx < PR * KS / VW; idx += kPanelThreads) {
+      const int r = idx / (KS / VW), k = idx % (KS / VW) * VW;
+      const bool in = r0 + r < n && k0 + k < n;
+      cp_async<VW>(As + r * LA + k, in ? op + int64_t(r0 + r) * n + k0 + k : op,
+                   in);
+    }
+    for (int idx = threadIdx.x; idx < KS * PC / VW; idx += kPanelThreads) {
+      const int k = idx / (PC / VW), c = idx % (PC / VW) * VW;
+      const bool in = k0 + k < n && col0 + c < n;
+      cp_async<VW>(Ws + k * PC + c, in ? w + int64_t(k0 + k) * n + col0 + c : w,
+                   in);
+    }
+  };
 
-  for (int b = 0; b < Bc; ++b) {
-    const T* pb = P + (s * Bc + b) * m1 * nn;
-    for (int i0 = 0; i0 < n; i0 += GI) {
-      for (int k0 = 0; k0 < n; k0 += GK) {
-        for (int idx = tid; idx < GT * GL; idx += kThreads) {
-          const int kk = idx % GK, ii = (idx / GK) % GI, r = idx / GL;
-          const int v = v0 + r, i = i0 + ii, k = k0 + kk;
-          Sv[r][ii * GK + kk] =
-              (v < m1 && i < n && k < n) ? pb[v * nn + static_cast<int64_t>(i) * n + k]
-                                         : T(0);
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int row0 = warp * 16;  // the warp's stripe within the tile
+  const bool live = r0 + row0 < n;
+  typename F::C acc[FM][FN];
+#pragma unroll
+  for (int fm = 0; fm < FM; ++fm)
+#pragma unroll
+    for (int fn = 0; fn < FN; ++fn) F::zero(acc[fm][fn]);
+
+  const int slabs = cdiv(n, KS);
+#pragma unroll
+  for (int s = 0; s < kPanelStages - 1; ++s) {
+    if (s < slabs) load(s, s);
+    cp_commit();
+  }
+  for (int s = 0; s < slabs; ++s) {
+    const int ahead = s + kPanelStages - 1;
+    if (ahead < slabs) load(ahead, ahead % kPanelStages);
+    cp_commit();
+    cp_wait<kPanelStages - 1>();
+    __syncthreads();
+    const T* As = smem + (s % kPanelStages) * panel_stage<T>();
+    const T* Ws = As + PR * LA;
+    const int steps = cdiv(min(KS, n - s * KS), F::K);
+    if (live) {
+#pragma unroll
+      for (int kk = 0; kk < KS / F::K; ++kk) {
+        if (kk < steps) {
+          typename F::A a[FM];
+#pragma unroll
+          for (int fm = 0; fm < FM; ++fm)
+            F::load_a(a[fm], lane, [&](int r, int k) {
+              return As[(row0 + fm * F::M + r) * LA + kk * F::K + k];
+            });
+          // The columns in two halves: fewer B fragments live at once.
+          constexpr int FH = (FN + 1) / 2;
+#pragma unroll
+          for (int h = 0; h < FN; h += FH) {
+            typename F::B b[FH];
+#pragma unroll
+            for (int j = 0; j < FH; ++j)
+              if (h + j < FN)
+                F::load_b(b[j], lane, [&](int k, int c) {
+                  return Ws[(kk * F::K + k) * PC + (h + j) * F::N + c];
+                });
+#pragma unroll
+            for (int pass = 0; pass < F::kPasses; ++pass)
+#pragma unroll
+              for (int j = 0; j < FH; ++j)
+#pragma unroll
+                for (int fm = 0; fm < FM; ++fm)
+                  if (h + j < FN) F::mma(pass, acc[fm][h + j], a[fm], b[j]);
+          }
         }
-        for (int idx = tid; idx < GT * GL; idx += kThreads) {
-          const int ii = idx % GI, kk = (idx / GI) % GK, r = idx / GL;
-          const int u = u0 + r, i = i0 + ii, k = k0 + kk;
-          Su[r][ii * GK + kk] =
-              (u < m1 && i < n && k < n) ? pb[u * nn + static_cast<int64_t>(k) * n + i]
-                                         : T(0);
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int l = 0; l < GL; ++l) {
-          T a[4], c[4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) a[q] = Sv[ty + 16 * q][l];
-#pragma unroll
-          for (int p = 0; p < 4; ++p) c[p] = Su[tx + 16 * p][l];
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-#pragma unroll
-            for (int p = 0; p < 4; ++p) acc[q][p] = madd(a[q], c[p], acc[q][p]);
-        }
-        __syncthreads();
       }
+    }
+    __syncthreads();
+  }
+
+  using Pair = std::conditional_t<sizeof(T) == 4, float2, double2>;
+  if (live) {
+#pragma unroll
+    for (int fm = 0; fm < FM; ++fm)
+#pragma unroll
+      for (int fn = 0; fn < FN; ++fn)
+        F::store_pairs(acc[fm][fn], lane, [&](int r, int c, T x0, T x1) {
+          const int row = r0 + row0 + fm * F::M + r, col = col0 + fn * F::N + c;
+          if (row >= BI * nb || col >= BI * nb) return;  // zeros past n
+          T* o = out + (int64_t(row / BI) * nb + col / BI) * (BI * BI) +
+                 row % BI * BI + col % BI;
+          *reinterpret_cast<Pair*>(o) = Pair{x0, x1};
+        });
+  }
+}
+
+// ---- Gram -----------------------------------------------------------------
+//
+// The depth (i, k) of E's sums goes in units of B x B pairs: unit (I, K),
+// I <= K, holds the blocks i in [B I, B I + B), k in [B K, B K + B) and,
+// for I < K, the mirrored blocks (K, I).  With C_IK[v, u] the sum over the
+// (I, K) blocks of P_v[i, k] P_u[k, i], the mirrored blocks give
+// C_KI = C_IK^T, so E = M + M^T with M = sum over units of C_IK, halved
+// for I = K (C_II is symmetric).  A unit stages the block P_v[I, K] for
+// rows v and P_u[K, I] for columns u, so each block of P is read once, and
+// E's symmetry costs no mirrored work.
+
+template <typename T>
+__host__ __device__ constexpr int gram_stage() {  // Xs [GT][LD], Ys [GT][LD]
+  return 2 * GT * (BI * BI + 4);
+}
+
+// The tile (tv, tu) of M for cone c0 + q over depth chunk d: units
+// [d UC, (d + 1) UC) of the row-major list of (I, K), I <= K.  grid:
+// (count D, tiles^2); dynamic shared memory: kGramStages stages.  part ==
+// nullptr (Bc = 1, D = 1, one tile): write the outputs from E = M + M^T; else
+// write M and the traces to partial row (c0 + q) D + d.
+template <typename T>
+__global__ void __launch_bounds__(kGramThreads)
+gram_kernel(const T* __restrict__ P, T* __restrict__ part, T* __restrict__ G,
+            T* __restrict__ AW, T* __restrict__ AQc, T* __restrict__ wc,
+            T* __restrict__ cqc, int64_t c0, int m, int n, int D, int UC) {
+  using F = Mma<T>;
+  constexpr int DS = BI * BI, LD = DS + 4;
+  constexpr int WR = GT / kGramWarps;  // rows of the tile per warp
+  constexpr int FM = WR / F::M, FN = GT / F::N;
+  static_assert(GT * GT <= kGramStages * gram_stage<T>(),
+                "M's tile fits the staging");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+
+  const int m1 = m + 1;
+  const int64_t q = blockIdx.x / D;
+  const int d = blockIdx.x % D;
+  const int64_t cone = c0 + q;
+  const int tiles = cdiv(m1, GT);
+  const int tv = blockIdx.y / tiles, tu = blockIdx.y % tiles;
+  const int v0 = tv * GT, u0 = tu * GT;
+  const int nb = cdiv(n, BI);
+  const int64_t nn = int64_t(BI * nb) * (BI * nb);  // one panel, in blocks
+  const T* Pc = P + q * m1 * nn;
+  const int j_lo = d * UC, j_hi = min(nb * (nb + 1) / 2, j_lo + UC);
+  int I0 = 0, K0 = j_lo;  // unit j_lo as (I, K)
+  while (K0 >= nb - I0) {
+    K0 -= nb - I0;
+    ++I0;
+  }
+  K0 += I0;
+  const auto next = [&](int& I, int& K) {
+    if (++K == nb) K = ++I;
+  };
+
+  // A unit stages rows v of Xs as the block P_v[I, K], (ii, kk) at
+  // ii B + kk, and rows u of Ys as the block P_u[K, I], (kk, ii) at kk B +
+  // ii: each a copy of 64 consecutive elements.  The product's depth p =
+  // B j + t (t < B) is the pair (ii, kk) = (t, t ^ j): a bijection under
+  // which both operands' fragment reads hit 32 distinct banks, though one
+  // of them reads the block across its rows.
+  constexpr int VW = 16 / int(sizeof(T));
+  auto load = [&](int I, int K, int stage) {
+    T* Xs = smem + stage * gram_stage<T>();
+    T* Ys = Xs + GT * LD;
+    const int64_t xb = int64_t(I * nb + K) * DS, yb = int64_t(K * nb + I) * DS;
+    for (int idx = threadIdx.x; idx < GT * DS / VW; idx += kGramThreads) {
+      const int r = idx / (DS / VW), p = idx % (DS / VW) * VW;
+      const bool xin = v0 + r < m1, yin = u0 + r < m1;
+      cp_async<VW>(Xs + r * LD + p, xin ? Pc + (v0 + r) * nn + xb + p : Pc, xin);
+      cp_async<VW>(Ys + r * LD + p, yin ? Pc + (u0 + r) * nn + yb + p : Pc, yin);
+    }
+  };
+  // Offsets of depth p in a row of Xs and of Ys.
+  const auto xoff = [](int p) { return (p % BI) * BI + ((p % BI) ^ (p / BI)); };
+  const auto yoff = [](int p) { return ((p % BI) ^ (p / BI)) * BI + p % BI; };
+
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int row0 = warp * WR;
+  const bool live = v0 + row0 < m1;  // a warp wholly past E's rows idles
+  typename F::C acc[FM][FN], unit[FM][FN];  // unit: one unit's sums
+#pragma unroll
+  for (int fm = 0; fm < FM; ++fm)
+#pragma unroll
+    for (int fn = 0; fn < FN; ++fn) F::zero(acc[fm][fn]);
+
+  const int units = j_hi - j_lo;
+  T tr = T(0);  // the trace of row v0 + threadIdx.x over this depth chunk
+  int Il = I0, Kl = K0, Ic = I0, Kc = K0;  // next unit to load, to compute
+#pragma unroll
+  for (int s = 0; s < kGramStages - 1; ++s) {
+    if (s < units) {
+      load(Il, Kl, s);
+      next(Il, Kl);
+    }
+    cp_commit();
+  }
+  for (int s = 0; s < units; ++s) {
+    const int ahead = s + kGramStages - 1;
+    if (ahead < units) {
+      load(Il, Kl, ahead % kGramStages);
+      next(Il, Kl);
+    }
+    cp_commit();
+    cp_wait<kGramStages - 1>();
+    __syncthreads();
+    const T* Xs = smem + (s % kGramStages) * gram_stage<T>();
+    const T* Ys = Xs + GT * LD;
+    const T half = Ic == Kc ? T(0.5) : T(1);
+    // The traces: row v's diagonal P_v[i, i] of a diagonal unit lies at
+    // (ii, kk) = (ii, ii) of Xs, in the thread of v on a diagonal tile.
+    if (Ic == Kc && tv == tu && threadIdx.x < GT) {
+#pragma unroll
+      for (int ii = 0; ii < BI; ++ii) tr += Xs[threadIdx.x * LD + ii * (BI + 1)];
+    }
+    if (live) {
+      auto& sums = pick<F::kUnitSums>(unit, acc);
+      if constexpr (F::kUnitSums) {
+#pragma unroll
+        for (int fm = 0; fm < FM; ++fm)
+#pragma unroll
+          for (int fn = 0; fn < FN; ++fn) F::zero(unit[fm][fn]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < DS / F::K; ++kk) {
+        typename F::A a[FM];
+#pragma unroll
+        for (int fm = 0; fm < FM; ++fm)
+          F::load_a(a[fm], lane, [&](int r, int k) {
+            return half * Xs[(row0 + fm * F::M + r) * LD + xoff(kk * F::K + k)];
+          });
+        typename F::B b[FN];
+#pragma unroll
+        for (int fn = 0; fn < FN; ++fn)
+          F::load_b(b[fn], lane, [&](int k, int c) {
+            return Ys[(fn * F::N + c) * LD + yoff(kk * F::K + k)];
+          });
+#pragma unroll
+        for (int pass = 0; pass < F::kPasses; ++pass)
+#pragma unroll
+          for (int fn = 0; fn < FN; ++fn)
+#pragma unroll
+            for (int fm = 0; fm < FM; ++fm)
+              F::mma(pass, sums[fm][fn], a[fm], b[fn]);
+      }
+      if constexpr (F::kUnitSums) {
+#pragma unroll
+        for (int fm = 0; fm < FM; ++fm)
+#pragma unroll
+          for (int fn = 0; fn < FN; ++fn) F::add(acc[fm][fn], unit[fm][fn]);
+      }
+    }
+    next(Ic, Kc);
+    __syncthreads();
+  }
+
+  T* Ms = smem;  // [GT][GT]: the tile of M, over the staging buffer
+#pragma unroll
+  for (int fm = 0; fm < FM; ++fm)
+#pragma unroll
+    for (int fn = 0; fn < FN; ++fn)
+      F::store(acc[fm][fn], lane, [&](int r, int c, T x) {
+        Ms[(row0 + fm * F::M + r) * GT + fn * F::N + c] = x;
+      });
+  __syncthreads();
+  const int64_t stride = int64_t(m1) * m1 + m1;
+  T* prow = part ? part + (cone * D + d) * stride : nullptr;
+  const int64_t sc = cone;  // the scenario, when part == nullptr (Bc = 1)
+  for (int e = threadIdx.x; e < GT * GT; e += kGramThreads) {
+    const int r = e / GT, c = e % GT, v = v0 + r, u = u0 + c;
+    if (v >= m1 || u >= m1) continue;
+    if (prow) {
+      prow[int64_t(v) * m1 + u] = Ms[e];
+      continue;
+    }
+    if (v > u) continue;
+    const T x = Ms[e] + Ms[c * GT + r];  // E = M + M^T
+    if (u < m) {
+      G[(sc * m + v) * m + u] = x;
+      G[(sc * m + u) * m + v] = x;
+    } else if (v < m) {
+      AQc[sc * m + v] = x;
+    } else {
+      cqc[sc] = x;
     }
   }
 
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      const int v = v0 + ty + 16 * q, u = u0 + tx + 16 * p;
-      if (v < m && u < m) {
-        G[(s * m + v) * m + u] = acc[q][p];
-      } else if (v == m && u < m) {
-        AQc[s * m + u] = acc[q][p];
-      } else if (v == m && u == m) {
-        cqc[s] = acc[q][p];
-      }
-    }
-
-  if (blockIdx.z == 0 && tid < GT) {
-    const int v = v0 + tid;
-    if (v < m1) {
-      T t = T(0);
-      for (int b = 0; b < Bc; ++b) {
-        const T* pv = P + ((s * Bc + b) * m1 + v) * nn;
-        for (int i = 0; i < n; ++i) t += pv[static_cast<int64_t>(i) * n + i];
-      }
-      if (v < m) {
-        AW[s * m + v] = t;
-      } else {
-        wc[s] = t;
-      }
+  if (tv == tu && threadIdx.x < GT && v0 + int(threadIdx.x) < m1) {
+    const int v = v0 + threadIdx.x;
+    if (prow) {
+      prow[int64_t(m1) * m1 + v] = tr;
+    } else if (v < m) {
+      AW[sc * m + v] = tr;
+    } else {
+      wc[sc] = tr;
     }
   }
 }
 
+// ---- the sum over cones and depth chunks ----------------------------------
+
+// out[e] of scenario s, summed over its Bc D partial rows: an entry of
+// E = M + M^T (the two sums added last) or a trace.  A block takes 32
+// outputs, one per lane; warp w sums the w-th eighth of the rows in
+// order, and lane e of warp 0 adds the eight sums in warp order.  grid:
+// (S, blocks of 32 of the m^2 + 2 m + 2 outputs).
 template <typename T>
-int launch(const T* A, const T* W, const T* C, T* P, T* G, T* AW, T* AQc,
-           T* wc, T* cqc, int S, int Bc, int m, int n, cudaStream_t stream) {
-  const int tiles_n = (n + PT - 1) / PT;
-  const dim3 panel_grid(S * Bc, m + 1, tiles_n * tiles_n);
-  panel_kernel<T><<<panel_grid, kThreads, 0, stream>>>(A, C, W, P, m, n,
-                                                       tiles_n);
-  cudaError_t err = cudaGetLastError();
+__global__ void __launch_bounds__(kReduceThreads)
+reduce_kernel(const T* __restrict__ part, int rows, int m, T* __restrict__ G,
+              T* __restrict__ AW, T* __restrict__ AQc, T* __restrict__ wc,
+              T* __restrict__ cqc) {
+  constexpr int kWarps = kReduceThreads / kWarp;
+  __shared__ T sums[2][kWarps][kWarp];
+  const int64_t s = blockIdx.x;
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int e = blockIdx.y * kWarp + lane;
+  const int m1 = m + 1, mm = m * m;
+  const int64_t stride = int64_t(m1) * m1 + m1;
+  const int64_t tr = int64_t(m1) * m1;  // the traces follow M
+  int v = -1, u = -1;  // E[v, u], or the trace at tr + v when u < 0
+  T* dst = nullptr;
+  if (e < mm) {
+    v = e / m;
+    u = e % m;
+    dst = G + s * mm + e;
+  } else if (e < mm + m) {
+    v = e - mm;
+    dst = AW + s * m + v;
+  } else if (e < mm + 2 * m) {
+    v = e - mm - m;
+    u = m;
+    dst = AQc + s * m + v;
+  } else if (e == mm + 2 * m) {
+    v = m;
+    dst = wc + s;
+  } else if (e == mm + 2 * m + 1) {
+    v = u = m;
+    dst = cqc + s;
+  }
+  T a = T(0), b = T(0);
+  if (dst) {
+    const T* p = part + s * rows * stride;
+    const int64_t ia = u < 0 ? tr + v : int64_t(v) * m1 + u;
+    const int64_t ib = u < 0 ? ia : int64_t(u) * m1 + v;
+    const int j_hi = (warp + 1) * rows / kWarps;
+    for (int j = warp * rows / kWarps; j < j_hi; ++j) {
+      a += p[j * stride + ia];
+      b += p[j * stride + ib];
+    }
+  }
+  sums[0][warp][lane] = a;
+  sums[1][warp][lane] = b;
+  __syncthreads();
+  if (warp == 0 && dst) {
+    a = sums[0][0][lane];
+    b = sums[1][0][lane];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) {
+      a += sums[0][w][lane];
+      b += sums[1][w][lane];
+    }
+    *dst = u < 0 ? a : a + b;
+  }
+}
+
+template <typename T, int VW>
+int launch(const T* A, const T* W, const T* C, T* P, T* part, T* G, T* AW,
+           T* AQc, T* wc, T* cqc, int S, int Bc, int m, int n, int Q, int D,
+           int UC, cudaStream_t stream) {
+  const int panel_smem = kPanelStages * panel_stage<T>() * int(sizeof(T));
+  const int gram_smem = kGramStages * gram_stage<T>() * int(sizeof(T));
+  cudaError_t err = cudaFuncSetAttribute(
+      panel_kernel<T, VW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      panel_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles_g = (m + 1 + GT - 1) / GT;
-  const dim3 gram_grid(S, tiles_g, tiles_g);
-  gram_kernel<T><<<gram_grid, kThreads, 0, stream>>>(P, Bc, m, n, G, AW, AQc,
-                                                     wc, cqc);
+  err = cudaFuncSetAttribute(gram_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             gram_smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const int m1 = m + 1;
+  const int tiles = cdiv(m1, GT);
+  const int panel_tiles = cdiv(n, PR) * cdiv(n, PC);
+  const int64_t cones = int64_t(S) * Bc;
+  const bool direct = Bc == 1 && D == 1 && tiles == 1;
+  for (int64_t c0 = 0; c0 < cones; c0 += Q) {
+    const int count = static_cast<int>(cones - c0 < Q ? cones - c0 : Q);
+    panel_kernel<T, VW><<<dim3(count * m1, panel_tiles), kPanelThreads,
+                          panel_smem, stream>>>(A, C, W, P, c0, m, n);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    gram_kernel<T><<<dim3(count * D, tiles * tiles), kGramThreads,
+                         gram_smem, stream>>>(P, direct ? nullptr : part, G,
+                                              AW, AQc, wc, cqc, c0, m, n, D,
+                                              UC);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (!direct) {
+    const dim3 grid(S, cdiv(m * m + 2 * m + 2, kWarp));
+    reduce_kernel<T><<<grid, kReduceThreads, 0, stream>>>(part, Bc * D, m, G,
+                                                          AW, AQc, wc, cqc);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Copies of 16 bytes where every row of A, W, C and P starts on 16 bytes.
+template <typename T>
+int dispatch(const T* A, const T* W, const T* C, T* P, T* part, T* G, T* AW,
+             T* AQc, T* wc, T* cqc, int S, int Bc, int m, int n, int Q, int D,
+             int UC, cudaStream_t stream) {
+  constexpr int kVec = 16 / int(sizeof(T));
+  const auto addr = [](const void* p) { return reinterpret_cast<uintptr_t>(p); };
+  if (n % kVec == 0 && (addr(A) | addr(W) | addr(C) | addr(P)) % 16 == 0)
+    return launch<T, kVec>(A, W, C, P, part, G, AW, AQc, wc, cqc, S, Bc, m, n,
+                           Q, D, UC, stream);
+  return launch<T, 1>(A, W, C, P, part, G, AW, AQc, wc, cqc, S, Bc, m, n, Q,
+                      D, UC, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shapes: A (S, Bc, m, n, n), W and C (S, Bc, n, n), scratch P
-// (S, Bc, m + 1, n, n); outputs G (S, m, m), AW and AQc (S, m), wc and cqc
-// (S,).  All contiguous on the current device.  Returns cudaGetLastError().
+// Shapes: A (S, Bc, m, n, n), W and C (S, Bc, n, n); scratch P (Q, m + 1,
+// 8 nb, 8 nb), nb = cdiv(n, 8), and, unless the Gram blocks write the
+// outputs (Bc = 1, D = 1, m < 64), part (S Bc D, (m + 1)^2 + m + 1);
+// outputs G (S, m, m), AW and AQc (S, m), wc and cqc (S,).  Q cones per
+// chunk, D depth chunks of UC units (cones/psd_schur.py::schur_plan).  All
+// contiguous on the current device.  Returns the first CUDA error, or 0.
 int conex_schur_f32(const float* A, const float* W, const float* C, float* P,
-                    float* G, float* AW, float* AQc, float* wc, float* cqc,
-                    int S, int Bc, int m, int n, void* stream) {
-  return launch<float>(A, W, C, P, G, AW, AQc, wc, cqc, S, Bc, m, n,
-                       static_cast<cudaStream_t>(stream));
+                    float* part, float* G, float* AW, float* AQc, float* wc,
+                    float* cqc, int S, int Bc, int m, int n, int Q, int D,
+                    int UC, void* stream) {
+  return dispatch<float>(A, W, C, P, part, G, AW, AQc, wc, cqc, S, Bc, m, n, Q,
+                       D, UC, static_cast<cudaStream_t>(stream));
 }
 
 int conex_schur_f64(const double* A, const double* W, const double* C,
-                    double* P, double* G, double* AW, double* AQc, double* wc,
-                    double* cqc, int S, int Bc, int m, int n, void* stream) {
-  return launch<double>(A, W, C, P, G, AW, AQc, wc, cqc, S, Bc, m, n,
-                        static_cast<cudaStream_t>(stream));
+                    double* P, double* part, double* G, double* AW,
+                    double* AQc, double* wc, double* cqc, int S, int Bc,
+                    int m, int n, int Q, int D, int UC, void* stream) {
+  return dispatch<double>(A, W, C, P, part, G, AW, AQc, wc, cqc, S, Bc, m, n,
+                        Q, D, UC, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

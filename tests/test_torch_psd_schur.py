@@ -190,15 +190,150 @@ def test_identity_state_matches_jax():
         np.testing.assert_array_equal(t[1].numpy(), np.asarray(j))
 
 
+# The kernel's plan (cones/psd_schur.py::schur_plan): (S, Bc, m, n, itemsize,
+# SMs).  The main path's shape, one program of many cones, two Gram tiles
+# with a ragged n, many cones in f64, a tiny shape, a card so small that
+# the plan needs no partials, and a batch whose panel takes two chunks.
+PLAN_SHAPES = [(256, 1, 50, 100, 4, 132), (1, 256, 50, 100, 4, 132),
+               (3, 2, 70, 130, 4, 132), (2, 64, 20, 100, 8, 132),
+               (3, 2, 4, 13, 8, 132), (5, 1, 6, 9, 4, 1),
+               (600, 1, 50, 100, 4, 132)]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_schur_plan_covers_every_block_once(shape):
+    """Every (scenario, cone, tile of M, depth chunk) is one Gram block,
+    the depth chunks' units are every pair (I, K), I <= K, of UNIT-wide
+    blocks once, and the chunks hold every cone once."""
+    S, Bc, m, n, itemsize, sms = shape
+    plan = psd_schur.schur_plan(S, Bc, m, n, itemsize, sms)
+    blocks = plan.gram_blocks()
+    tiles = -(-(m + 1) // psd_schur.GRAM_TILE)
+    want = {(s, b, tv, tu, d) for s in range(S) for b in range(Bc)
+            for tv in range(tiles) for tu in range(tiles)
+            for d in range(plan.depth_chunks)}
+    assert len(blocks) == len(set(blocks)) == len(want)
+    assert set(blocks) == want
+    nb = -(-n // psd_schur.UNIT)
+    units = [u for d in range(plan.depth_chunks) for u in plan.depth_units(d)]
+    assert units == [(i, k) for i in range(nb) for k in range(i, nb)]
+    assert all(plan.depth_units(d) for d in range(plan.depth_chunks))
+    counts = [plan.chunk_cones(c) for c in range(plan.chunks)]
+    assert [c0 for c0, _ in counts] == [c * plan.cones_per_chunk
+                                        for c in range(plan.chunks)]
+    assert sum(k for _, k in counts) == S * Bc
+    assert all(0 < k <= plan.cones_per_chunk for _, k in counts)
+    plan.check()
+
+
+@pytest.mark.parametrize("shape,want", [
+    # Bench shape, f32: the whole panel (256 cones of 51 x 104^2 floats,
+    # 565 MB) in one chunk; two depth chunks of 46 units give 512 blocks.
+    ((256, 1, 50, 100, 4, 132),
+     dict(cones_per_chunk=256, chunks=1, tiles=1, units=91, depth_chunks=2,
+          units_per_chunk=46, scratch_shape=(256, 51, 104, 104),
+          partial_shape=(512, 2652), launches=3, direct=False)),
+    # One program of 256 cones: the same split, one scenario to reduce.
+    ((1, 256, 50, 100, 4, 132),
+     dict(cones_per_chunk=256, chunks=1, depth_chunks=2,
+          partial_shape=(512, 2652), launches=3)),
+    # m + 1 = 71: four tiles of M; n = 130: 17 blocks, 153 units.
+    ((3, 2, 70, 130, 4, 132),
+     dict(cones_per_chunk=6, tiles=2, units=153, depth_chunks=17,
+          units_per_chunk=9, scratch_shape=(6, 71, 136, 136),
+          partial_shape=(102, 5112), launches=3)),
+    # Many cones of m = 20 in f64: four depth chunks of 23 units.
+    ((2, 64, 20, 100, 8, 132),
+     dict(cones_per_chunk=128, chunks=1, depth_chunks=4, units_per_chunk=23,
+          scratch_shape=(128, 21, 104, 104), partial_shape=(512, 462),
+          launches=3)),
+    # Tiny: three units, one per depth chunk.
+    ((3, 2, 4, 13, 8, 132),
+     dict(cones_per_chunk=6, chunks=1, units=3, depth_chunks=3,
+          units_per_chunk=1, scratch_shape=(6, 5, 16, 16),
+          partial_shape=(18, 30), launches=3)),
+    # Bc = 1, one depth chunk, one tile: outputs written directly.
+    ((5, 1, 6, 9, 4, 1),
+     dict(cones_per_chunk=5, chunks=1, depth_chunks=1, units_per_chunk=3,
+          partial_shape=(0, 0), launches=2, direct=True)),
+    # 600 panels of 2.2 MB exceed the 1 GiB scratch: two chunks, direct.
+    ((600, 1, 50, 100, 4, 132),
+     dict(cones_per_chunk=486, chunks=2, depth_chunks=1, launches=4,
+          direct=True)),
+])
+def test_schur_plan_sizes(shape, want):
+    plan = psd_schur.schur_plan(*shape)
+    for name, value in want.items():
+        assert getattr(plan, name) == value, name
+    S, Bc, m, n, itemsize, _ = shape
+    scratch = np.prod(plan.scratch_shape) * itemsize
+    assert plan.cones_per_chunk == 1 or scratch <= psd_schur.SCRATCH_BYTES
+
+
+def test_schur_plan_refuses_grids_beyond_cuda():
+    with pytest.raises(ValueError, match="launch grid"):
+        psd_schur.schur_plan(1, 1, 2000, 4, 4).check()
+
+
+def _tf32(x):
+    """float32 rounded to TF32 as the kernel rounds (cvt.rna.tf32.f32): to
+    nearest on the 13 dropped mantissa bits, ties away from zero."""
+    bits = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x1000) & 0xFFFFE000
+    bits = torch.where(bits >= 2**31, bits - 2**32, bits)
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def _tc_product(a, b, passes):
+    """a @ b as the kernel's f32 tensor-core products: hi = tf32(x), lo =
+    tf32(x - hi); three passes add lo hi + hi lo + hi hi, one pass hi hi;
+    products exact, sums in f32."""
+    ahi, bhi = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ahi @ bhi
+    alo, blo = _tf32(a - ahi), _tf32(b - bhi)
+    return alo @ bhi + ahi @ blo + ahi @ bhi
+
+
+def _emulated_schur(A, W, C, passes):
+    """The kernel's numerical design in f32: the panel P_v = Op_v W and E
+    over (i, k) pairs, both through _tc_product; E symmetrized, as the
+    kernel forms it as M + M^T."""
+    S, Bc, m, n, _ = A.shape
+    ops = torch.cat([A, C[:, :, None]], dim=2)  # C as operator m
+    P = _tc_product(ops, W[:, :, None], passes)  # (S, Bc, m+1, n, n)
+    X = P.reshape(S, Bc, m + 1, n * n)
+    Y = P.transpose(-1, -2).reshape(S, Bc, m + 1, n * n)
+    E = _tc_product(X, Y.transpose(-1, -2), passes).sum(1)
+    E = 0.5 * (E + E.transpose(-1, -2))
+    tr = torch.diagonal(P, dim1=-2, dim2=-1).sum(-1).sum(1)
+    return E[:, :m, :m], tr[:, :m], E[:, :m, m], tr[:, m], E[:, m, m]
+
+
+@pytest.mark.parametrize("passes,reaches", [(3, True), (1, False)])
+def test_tf32_split_reaches_f64_and_one_pass_does_not(passes, reaches):
+    """Three TF32 passes come within 1e-5 of the f64 oracle (relative
+    Frobenius error per output); one pass does not."""
+    rng = np.random.default_rng(8)
+    A, C, W = map(convert.tensor, _inputs(rng, 2, 3, 5, 24))
+    want = psd_schur.schur_plain(A, W, C)
+    got = _emulated_schur(A.float(), W.float(), C.float(), passes)
+    err = max(float(torch.linalg.vector_norm(g.double() - w)
+                    / torch.linalg.vector_norm(w)) for g, w in zip(got, want))
+    assert (err <= 1e-5) == reaches, err
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-4)])
-def test_schur_kernel_matches_plain_on_card(dtype, tol):
+@pytest.mark.parametrize("shape", [(3, 2, 4, 13), (2, 64, 20, 100)])
+def test_schur_kernel_matches_plain_on_card(dtype, tol, shape):
     """The CUDA kernel against schur_plain on the card (relative Frobenius
-    error; f32 against the f64 plain version, for a 100-term sum here)."""
+    error; f32 against the f64 plain version), at a small shape and at one
+    of many cones."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.default_rng(7)
-    A, C, W = (convert.tensor(x, "cuda") for x in _inputs(rng, 3, 2, 4, 13))
+    A, C, W = (convert.tensor(x, "cuda") for x in _inputs(rng, *shape))
     before = psd_schur.schur_kernel.launches
     got = psd_schur.schur_fused(A.to(dtype), W.to(dtype), C.to(dtype))
     torch.cuda.synchronize()

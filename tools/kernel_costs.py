@@ -1,8 +1,8 @@
-"""What the port's kernel build costs, and where the SOCP path's time goes.
+"""What the port's kernel build costs, and where the paths' time goes.
 
-    python3 tools/kernel_costs.py [build] [fma] [profile] [probes]
+    python3 tools/kernel_costs.py [build] [fma] [profile] [probes] [sdp] [k1]
 
-Needs one CUDA card and nvcc; imports nothing of JAX.  Four parts (all of
+Needs one CUDA card and nvcc; imports nothing of JAX.  Six parts (all of
 them when none is named), each printing its own lines:
 
 1. build: the nvcc wall time of the library as ``conex_tpu_torch._build``
@@ -22,7 +22,20 @@ them when none is named), each printing its own lines:
 4. probes: the same profile of one call of each Schur probe kernel
    (K3-K6), of its plain version and of K1 as one program (S = 1, Bc =
    256), on the probes' inputs at B = 256, m = 50, n = 100, f32: where
-   each call's time goes, launch by launch.
+   each call's time goes, launch by launch;
+5. sdp: the same profile of one solve of the SDP main path (bench.py's
+   workload, chip_smoke.bench_workload: 256 scenarios, n = 100, m = 50,
+   f32, 30 iterations), with the device time of its 15 largest kernels
+   and the launches per iteration;
+6. k1: K1 (the Schur kernel) at the main path's shape (S = 256, Bc = 1)
+   and as one program of 256 cones (S = 1, Bc = 256), f32, under several
+   plans (cones/psd_schur.py: SCRATCH_BYTES, the panel scratch of a chunk
+   of cones, and GRAM_BLOCKS_PER_SM, which sets the depth split): each
+   plan, CUDA-event times in turns, and one profiled call of the product
+   plan, launch by launch; then, at the main path's shape, variants of
+   csrc/schur.cu built beside the product (one TF32 pass instead of three,
+   and no products at all), each profiled launch by launch with its error
+   against the f64 oracle: what the products cost over the copies.
 
 A run of all four parts holds the card for several minutes (part 2 builds
 the library twice); naming parts runs only those, so a question about one
@@ -132,7 +145,7 @@ def part_fma(device):
     _build._loaded = None
 
 
-def profile(label, fn):
+def profile(label, fn, iterations=None, top=5):
     import torch
     from torch.autograd import DeviceType
 
@@ -145,24 +158,36 @@ def profile(label, fn):
         torch.cuda.synchronize()
         best = min(best, time.perf_counter() - t0)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
 
     def dev_us(e):  # the attribute's name differs between torch versions
         if hasattr(e, "self_device_time_total"):
             return e.self_device_time_total
         return e.self_cuda_time_total
 
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    # On an H100 the trace may miss the first kernel launched in its window
+    # (K1's panel launch, in some runs), so a spin kernel goes first and is
+    # left out of every count; a trace that still holds fewer kernels than
+    # launch calls is taken again, up to three times.
+    for attempt in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda._sleep(1_000_000)
+            fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        kernels = [e for e in events
+                   if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
+        launches = sum(e.count for e in events if e.key in LAUNCH_CALLS) - 1
+        if sum(e.count for e in kernels) >= launches:
+            break
+        log(f"[profile] {label}: the trace holds fewer kernels than the "
+            f"{launches} launch calls; tracing again")
     device_ms = sum(dev_us(e) for e in kernels) / 1e3
-    launches = sum(e.count for e in events if e.key in LAUNCH_CALLS)
+    per = f" ({launches / iterations:.1f} per iteration)" if iterations else ""
     log(f"[profile] {label}: wall {best * 1e3:.3f} ms (best of 3, unprofiled); "
         f"device-kernel time {device_ms:.3f} ms in {sum(e.count for e in kernels)} "
-        f"device ops, {launches} launch calls; device busy "
+        f"device ops, {launches} launch calls{per}; device busy "
         f"{100 * device_ms / (best * 1e3):.1f}% of the wall")
-    for e in sorted(kernels, key=dev_us, reverse=True)[:5]:
+    for e in sorted(kernels, key=dev_us, reverse=True)[:top]:
         log(f"[profile]   {dev_us(e) / 1e3:9.3f} ms x{e.count:<6} {e.key[:90]}")
 
 
@@ -201,8 +226,111 @@ def part_probes(device):
         A.view(1, B, m, n, n), w.view(1, B, n, n), C.view(1, B, n, n)))
 
 
+def part_sdp(device):
+    import torch
+
+    from conex_tpu_torch import solve_scenarios
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    blk, b, init_ws, scalars, config = chip_smoke.bench_workload(device)
+    profile("SDP main path, one solve of 30 iterations",
+            lambda: solve_scenarios((blk,), (), b, init_ws, scalars, config),
+            iterations=config.max_iterations, top=15)
+
+
+# (scratch MiB, Gram blocks per SM): chunks that stay in the 50 MB L2
+# cache, then one chunk under several depth splits.
+K1_PLANS = ((32, 3), (1024, 3), (1024, 6), (1024, 12), (1024, 24))
+# Edits of csrc/schur.cu for part k1's variants.
+_ONE_PASS = (("static constexpr int kPasses = 3;", "static constexpr int kPasses = 1;"),
+             ("      mma_tf32(c.c, a.lo, b.hi);\n    } else if",
+              "      mma_tf32(c.c, a.hi, b.hi);\n    } else if"))
+_NO_PRODUCTS = _ONE_PASS + (
+    ("  hi = tf32_round(x);\n  lo = tf32_round(x - __uint_as_float(hi));",
+     "  hi = __float_as_uint(x);\n  lo = 0u;"),
+    ("""  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));""",
+     "  c[0] += __uint_as_float(a[0] ^ a[1] ^ a[2] ^ a[3] ^ b[0] ^ b[1]);"))
+K1_VARIANTS = {"one TF32 pass": _ONE_PASS, "no products": _NO_PRODUCTS}
+
+
+def schur_variant(name, edits):
+    """csrc/schur.cu with ``edits`` built alone into BUILD_DIR; a Build
+    whose library binds the Schur entry points only."""
+    from conex_tpu_torch import _build
+
+    text = _build.SOURCES[0].read_text()
+    for old, new in edits:
+        if old not in text:
+            raise RuntimeError(f"variant {name!r}: csrc/schur.cu lacks {old!r}")
+        text = text.replace(old, new)
+    stem = "variant_" + name.replace(" ", "_")
+    src, out = _build.BUILD_DIR / f"{stem}.cu", _build.BUILD_DIR / f"{stem}.so"
+    src.write_text(text)
+    _build._run_all([[_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(out),
+                      str(src)]])
+    lib = ctypes.CDLL(str(out))
+    for fn in ("conex_schur_f32", "conex_schur_f64"):
+        getattr(lib, fn).argtypes = _build._SCHUR_ARGTYPES
+        getattr(lib, fn).restype = ctypes.c_int
+    return _build.Build(lib=lib, path=out, seconds=0.0, log="")
+
+
+def part_k1(device):
+    from conex_tpu_torch.benchmarks import dev_pallas_probe
+    from conex_tpu_torch.cones import psd_schur
+
+    default = psd_schur.SCRATCH_BYTES, psd_schur.GRAM_BLOCKS_PER_SM
+
+    def use(mib, bps):
+        psd_schur.SCRATCH_BYTES, psd_schur.GRAM_BLOCKS_PER_SM = mib << 20, bps
+
+    A, W, C = (x.float() for x in chip_smoke.schur_inputs(256, 1, 50, 100, seed=1,
+                                                          device=device))
+    B, m, n = chip_smoke.PROBE_SHAPE
+    Ap, w, Cp = dev_pallas_probe.probe_inputs(B, m, n, device)
+    shapes = {"S=256, Bc=1": (A, W, C),
+              "S=1, Bc=256": (Ap.view(1, B, m, n, n), w.view(1, B, n, n),
+                              Cp.view(1, B, n, n))}
+    try:
+        for label, args in shapes.items():
+            ms = {plan: [] for plan in K1_PLANS}
+            for plan in K1_PLANS + K1_PLANS[::-1]:
+                use(*plan)
+                ms[plan].append(chip_smoke.time_ms(
+                    lambda: psd_schur.schur_kernel(*args), 10))
+            for plan in K1_PLANS:
+                use(*plan)
+                sp = psd_schur.schur_plan(*args[0].shape[:4], 4)
+                log(f"[k1] {label} f32, scratch {plan[0]} MiB, {plan[1]} Gram blocks "
+                    f"per SM: {sp}, {sp.launches} launches; ms per call "
+                    f"{ms[plan]} (CUDA events, 10 calls each)")
+            psd_schur.SCRATCH_BYTES, psd_schur.GRAM_BLOCKS_PER_SM = default
+            profile(f"K1 {label} f32, product plan", lambda: psd_schur.schur_kernel(*args))
+    finally:
+        psd_schur.SCRATCH_BYTES, psd_schur.GRAM_BLOCKS_PER_SM = default
+
+    from conex_tpu_torch import _build
+
+    product = _build.build()
+    oracle = psd_schur.schur_plain(A.double(), W.double(), C.double())
+    try:
+        for name, edits in K1_VARIANTS.items():
+            _build._loaded = schur_variant(name, edits)
+            err = chip_smoke.rel_err(psd_schur.schur_kernel(A, W, C), oracle)
+            log(f"[k1] variant {name}: f32 rel err vs f64 oracle {err:.3e}")
+            profile(f"K1 S=256, Bc=1 f32, variant {name}",
+                    lambda: psd_schur.schur_kernel(A, W, C))
+    finally:
+        _build._loaded = product
+
+
 PARTS = {"build": lambda device: part_build(), "fma": part_fma,
-         "profile": part_profile, "probes": part_probes}
+         "profile": part_profile, "probes": part_probes, "sdp": part_sdp,
+         "k1": part_k1}
 
 
 def main(argv=None):
