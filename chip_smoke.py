@@ -5,9 +5,10 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. the card: name and power limit from nvidia-smi; no CUDA card fails;
-2. build: the three sources (csrc/schur.cu, csrc/fused_socp.cu and
-   csrc/schur_probes.cu) with nvcc, with the build time and ptxas's
-   registers, shared memory, stack frame and spills for every entry;
+2. build: the three sources (csrc/schur.cu, csrc/fused_socp.cu, once per
+   working type, and csrc/schur_probes.cu) with nvcc, with the build time
+   and ptxas's registers, shared memory, stack frame and spills for every
+   entry (K2: one per TEAM, 8 and 32, route and type);
 3. Schur kernel against plain: the CUDA Schur kernel (K1) against
    schur_plain on the card, in f64 (relative Frobenius error <= 1e-12) and
    in f32 against an f64 oracle (<= 1e-4), at four shapes (S, Bc, m, n): a
@@ -23,9 +24,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    bit; a change of order alone grows tenfold per iteration where k climbs
    fast) on small batches that reach every branch (feasible, infeasible, a
    factorization failure, refinement, the stall detector, dual recovery, a
-   poisoned warmstart) and at the bench_socp shape (S = 1,000, 30 fixed
-   iterations).  In f32 at the bench_socp shape at S = 1,000, 10,000 and
-   100,000 (limit 1e-6, ten ulps: see F32_LIMIT); as an extra check, f32
+   poisoned warmstart) and on a batch of 64 scenarios of 4 cones of dim 250
+   and m = 16 whose working set (301 KB each) takes the global route, each
+   under TEAM 32 and TEAM 8, and at the bench_socp shape (S = 1,000, 30
+   fixed iterations).  In f32 at the
+   bench_socp shape at S = 1,000, 10,000 and 100,000 (limit 1e-6, ten
+   ulps: see F32_LIMIT); every call prints the plan it ran under
+   (parallel/fused_socp.py::socp_plan: route, TEAM, scenarios per block,
+   shared bytes); as an extra check, f32
    against an f64 oracle
    at S = 10,000: 30 iterations and no failure in both, median relative
    stats_k difference over iterations 1-2 <= 1e-3.  CUDA-event times of
@@ -49,7 +55,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 4b. the SOCP main path: `bench.py socp`'s workload (nc=1, n=20, m=10, f32,
    30 fixed iterations) through parallel.fused_socp.solve_socp_fused at
    S = 1,000, 10,000, 100,000: 30 iterations and no failure in every
-   scenario, one kernel launch per call, Newton it/s as the best of 3 runs;
+   scenario, one kernel launch per call, Newton it/s as the best of 3 runs,
+   and the plan of each size;
    the same workload at S = 10,000 through solve_scenarios with SOCCone
    (the general path), its it/s and its agreement with the fused path;
 5. a known answer: a small f64 SDP through Program(device="cuda"), against
@@ -61,7 +68,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    conex_tpu_torch/benchmarks, on the card in f32: each variant's kernel
    must launch.
 
-The last lines are the kernels' JSON record (with each kernel's bound:
+The last lines are the kernels' JSON record (K2's with the plan of its
+timed call; with each kernel's bound:
 the larger of its operations over the peak rate of the units that do
 them and its bytes over 3.35 TB/s; K1's products run on the tensor cores,
 three TF32 passes per f32 product at 495 TFLOP/s, the other kernels' on
@@ -570,40 +578,54 @@ def unbounded_and_infeasible(rng, A, c, b, unbounded, infeasible):
     c[idx, 0, 0] = -1.0
 
 
-def check_fused(label, args, config, limit):
-    """Kernel against plain on the same inputs, every field of
-    FusedSOCPResult: iteration counts and flags identical; the floating
-    fields within ``limit`` relative (in each scenario's 2-norm for y,
-    y_kkt and w, entrywise for the rest).  Returns the plain version's
-    counts of each flag and the largest |kernel - plain| over the floating
-    fields."""
+def fused_plan(args, config, **kw):
+    """socp_plan of a kernel call on ``args`` (the seven inputs)."""
+    from conex_tpu_torch.parallel import fused_socp
+
+    A = args[0]
+    return fused_socp.socp_plan(*A.shape, A.element_size(), config.max_iterations, **kw)
+
+
+def check_fused(label, args, config, limit, teams=(None,)):
+    """Kernel against plain on the same inputs, once under the plan of each
+    of ``teams`` (None: socp_plan's pick), every field of FusedSOCPResult:
+    iteration counts and flags identical; the floating fields within
+    ``limit`` relative (in each scenario's 2-norm for y, y_kkt and w,
+    entrywise for the rest).  Returns the plain version's counts of each
+    flag and the largest |kernel - plain| over the floating fields."""
     import torch
 
     from conex_tpu_torch.parallel import fused_socp
 
-    got = fused_socp.epilogue(fused_socp.solve_socp_kernel(*args, config), config)
     want = fused_socp.epilogue(fused_socp.solve_socp_plain(*args, config), config)
-    torch.cuda.synchronize()
     counts = {name: int(getattr(want, name).to(torch.int64).sum()) for name in SOCP_FLAGS}
     counts["aborted at iteration 1"] = int((want.stats_dinf[:, 0] >= 2.0).sum())
-    log(f"[3b fused kernel] {label}: S={args[0].shape[0]}, plain version's "
-        f"counts {counts}")
-    for name in SOCP_FLAGS:
-        g, w = getattr(got, name), getattr(want, name)
-        if not torch.equal(g, w):
-            bad = (g != w).nonzero()[:5, 0].tolist()
-            fail(f"{label}: {name} differs from the plain version in scenarios "
-                 f"{bad}: kernel {g[bad].tolist()} plain {w[bad].tolist()}")
-    rel = {name: float((per_scenario_rel if name in SOCP_PER_SCENARIO else stats_rel)(
-        getattr(got, name), getattr(want, name)).max()) for name in SOCP_FLOATS}
-    max_abs = max(max_abs_diff(getattr(got, f), getattr(want, f)) for f in SOCP_FLOATS)
-    log(f"[3b fused kernel] {label}: flags identical; max relative difference "
-        f"{rel} (limit {limit:g}); max |kernel - plain| {max_abs:.3e}")
-    if not all(v <= limit for v in rel.values()):
-        s = int(stats_rel(got.stats_k, want.stats_k).amax(1).argmax())
-        log(f"  scenario {s}: kernel stats_k {got.stats_k[s].tolist()}")
-        log(f"  scenario {s}: plain  stats_k {want.stats_k[s].tolist()}")
-        fail(f"{label}: kernel and plain version disagree beyond {limit:g}: {rel}")
+    log(f"[3b fused kernel] {label}: S={args[0].shape[0]}, plain version's counts {counts}")
+    max_abs = 0.0
+    for team in teams:
+        plan = fused_plan(args, config, team=team)
+        got = fused_socp.epilogue(fused_socp.solve_socp_kernel(*args, config, plan=plan),
+                                  config)
+        torch.cuda.synchronize()
+        log(f"[3b fused kernel] {label}: plan: {plan.describe()}")
+        for name in SOCP_FLAGS:
+            g, w = getattr(got, name), getattr(want, name)
+            if not torch.equal(g, w):
+                bad = (g != w).nonzero()[:5, 0].tolist()
+                fail(f"{label}, TEAM {plan.team}: {name} differs from the plain version "
+                     f"in scenarios {bad}: kernel {g[bad].tolist()} plain {w[bad].tolist()}")
+        rel = {name: float((per_scenario_rel if name in SOCP_PER_SCENARIO else stats_rel)(
+            getattr(got, name), getattr(want, name)).max()) for name in SOCP_FLOATS}
+        diff = max(max_abs_diff(getattr(got, f), getattr(want, f)) for f in SOCP_FLOATS)
+        max_abs = max(max_abs, diff)
+        log(f"[3b fused kernel] {label}, TEAM {plan.team}: flags identical; max relative "
+            f"difference {rel} (limit {limit:g}); max |kernel - plain| {diff:.3e}")
+        if not all(v <= limit for v in rel.values()):
+            s = int(stats_rel(got.stats_k, want.stats_k).amax(1).argmax())
+            log(f"  scenario {s}: kernel stats_k {got.stats_k[s].tolist()}")
+            log(f"  scenario {s}: plain  stats_k {want.stats_k[s].tolist()}")
+            fail(f"{label}, TEAM {plan.team}: kernel and plain version disagree beyond "
+                 f"{limit:g}: {rel}")
     return counts, max_abs
 
 
@@ -629,8 +651,12 @@ def phase_fused_kernel(device):
     A[5, :, :, 1] = 0.0
     cold = SolverConfig(max_iterations=60, prepare_dual_variables=True,
                         iterative_refinement_iterations=1, mu_stall_iterations=4)
+    # The cold, warm and global-route batches run under both of the
+    # library's TEAM sizes: 32 (one team per warp) and 8 (four teams share
+    # a warp, each with its own mask), so every branch runs under both.
+    teams = fused_socp.TEAMS
     counts, max_abs = check_fused("f64 cold", fused_inputs(A, c, b, f64, device),
-                                  cold, F64_LIMIT)
+                                  cold, F64_LIMIT, teams)
     if not (counts["fail"] >= 1 and counts["solved"] >= 1
             and counts["mu_stalled"] >= 1):
         fail(f"f64 cold batch misses a branch: {counts}")
@@ -648,11 +674,24 @@ def phase_fused_kernel(device):
                         warmstart_abort_threshold=2.0)
     counts, abs_warm = check_fused(
         "f64 warm", fused_inputs(A, c, b, f64, device, w0, np.ones(200)), warm,
-        F64_LIMIT)
+        F64_LIMIT, teams)
     if not (counts["aborted at iteration 1"] >= 100 and counts["fail"] >= 1
             and counts["solved"] <= 200 - 11):
         fail(f"f64 warm batch misses the abort, the failure or the "
              f"unsolved: {counts}")
+    # f64 on the global route: one scenario's working set (nc = 4 cones of
+    # dim 250, m = 16: 301 KB) exceeds a block's shared memory.
+    rng = np.random.default_rng(13)
+    args = fused_inputs(*random_socp(rng, 64, 4, 249, 16), f64, device)
+    big = SolverConfig(max_iterations=40, prepare_dual_variables=True,
+                       iterative_refinement_iterations=1)
+    if fused_plan(args, big).route != "global":
+        fail(f"the large batch does not take the global route: {fused_plan(args, big)}")
+    counts, abs_global = check_fused("f64 global route", args, big, F64_LIMIT, teams)
+    if counts["solved"] < 1:
+        fail(f"f64 global-route batch solves nothing: {counts}")
+    max_abs = max(max_abs, abs_global)
+    del args
     # f64 at the bench_socp shape (30 fixed iterations), the same rule.
     config = socp_config()
     counts, abs_bench = check_fused(
@@ -702,7 +741,15 @@ def phase_fused_kernel(device):
         _, nc, n1, m = args[0].shape
         del args, fns
     kernel_ms, plain_ms = times[SOCP_SIZES[-1]]
+    plan = fused_socp.socp_plan(SOCP_SIZES[-1], nc, n1, m, 4, config.max_iterations)
+    traffic = plan.traffic_bytes(counts["num_iterations"])
+    log(f"[3b fused kernel] S={SOCP_SIZES[-1]} f32: device-memory traffic from the "
+        f"plan {traffic / 1e9:.4f} GB, {1e3 * traffic / HBM_BYTES_PER_S:.4f} ms at "
+        f"3.35 TB/s")
     return dict(max_abs_err=max_abs, ms=kernel_ms, plain_ms=plain_ms,
+                plan=dict(route=plan.route, team=plan.team,
+                          scenarios_per_block=plan.per_block,
+                          shared_bytes=plan.shared_bytes),
                 **socp_bound(SOCP_SIZES[-1], nc, n1, m, counts["num_iterations"],
                              config.max_iterations,
                              config.iterative_refinement_iterations))
@@ -736,6 +783,8 @@ def phase_socp_main_path(device):
         out = run(b)
         total = int(out.num_iterations.sum())
         n_fail = int(out.fail.sum())
+        plan = fused_socp.socp_plan(*A.shape, A.element_size(), iters)
+        log(f"[4b socp main path] S={S}: plan: {plan.describe()}")
         log(f"[4b socp main path] S={S}: iterations {total} (want {iters * S}), "
             f"failures {n_fail}")
         if total != iters * S or n_fail:
@@ -988,10 +1037,10 @@ def main():
     ] + [dict(name=name, route="cuda", source=PROBE_SOURCE, replaces=replaces,
               library_ms=None, **probes[name]) for name, _, replaces in PROBES]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "plan")
     log(LIBRARY_NOTE)
-    print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}),
-          flush=True)
+    print(json.dumps({"kernels": [{k: kern[k] for k in keys if k != "plan" or k in kern}
+                                  for kern in kernels]}), flush=True)
     print(card_name_and_power_limit(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` are compiled with nvcc, one process per source, all started
-together, and linked into one shared library with a plain C interface,
+``csrc/*.cu`` are compiled with nvcc, one process per compilation unit
+(``UNITS``: each source, and fused_socp.cu once per working type), all
+started together, and linked into one shared library with a plain C interface,
 loaded with ctypes.  The build happens at first use, on the
 machine with the card, into ``conex_tpu_torch/_build/`` (listed in
 .gitignore); the library's file name carries a hash of the sources and
@@ -24,6 +25,15 @@ from typing import NamedTuple, Optional
 _PKG = Path(__file__).resolve().parent
 SOURCES = tuple(_PKG / "csrc" / name for name in
                 ("schur.cu", "fused_socp.cu", "schur_probes.cu"))
+# Compilation units: (source, extra flags, object tag).  fused_socp.cu is
+# compiled once per working type (its CONEX_SOCP_PART), so its float32 and
+# float64 instantiations build side by side.
+UNITS = (
+    (SOURCES[0], (), "schur"),
+    (SOURCES[1], ("-DCONEX_SOCP_PART=1",), "fused_socp_f32"),
+    (SOURCES[1], ("-DCONEX_SOCP_PART=2",), "fused_socp_f64"),
+    (SOURCES[2], (), "schur_probes"),
+)
 BUILD_DIR = _PKG / "_build"
 # No --use_fast_math: the kernels keep IEEE sqrt, exp and division.  No FMA
 # contraction: every product and sum is rounded on its own, as in the plain
@@ -42,9 +52,9 @@ _I = ctypes.c_int
 # conex_schur_f{32,64}(A, W, C, P, part, G, AW, AQc, wc, cqc, S, Bc, m, n,
 # Q, D, R, stream)
 _SCHUR_ARGTYPES = [_P] * 10 + [_I] * 7 + [_P]
-# conex_socp_fused_f{32,64}(23 device pointers, S, nc, n1, m, iparams,
-# dparams, stream); iparams and dparams are host arrays
-_SOCP_ARGTYPES = [_P] * 23 + [_I] * 4 + [_P] * 3
+# conex_socp_fused_f{32,64}(23 device pointers, S, nc, n1, m, plan,
+# iparams, dparams, stream); plan, iparams and dparams are host arrays
+_SOCP_ARGTYPES = [_P] * 23 + [_I] * 4 + [_P] * 4
 # conex_probe_{a,b,b2,a2}_f{32,64}(A, W, C, X, Y, part, G, AW, AQc, wc, cqc,
 # B, m, n, stream)
 _PROBE_ARGTYPES = [_P] * 11 + [_I] * 3 + [_P]
@@ -79,6 +89,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr([(src.name, flags) for src, flags, _ in UNITS]).encode())
     for src in SOURCES:
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -129,13 +140,13 @@ def build(force: bool = False) -> Build:
             # Compile to private names and rename: concurrent processes on
             # one checkout never load a half-written library.
             tag = f"{out.stem}.{os.getpid()}"
-            objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
+            objs = [BUILD_DIR / f"{tag}.{unit}.o" for _, _, unit in UNITS]
             tmp = BUILD_DIR / f"{tag}.so.tmp"
             nvcc = _nvcc()
             t0 = time.perf_counter()
             compiles = [
-                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-                for src, obj in zip(SOURCES, objs)
+                [nvcc, *NVCC_FLAGS, *flags, "-c", "-o", str(obj), str(src)]
+                for (src, flags, _), obj in zip(UNITS, objs)
             ]
             log = _run_all(compiles)
             log += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])

@@ -1,5 +1,5 @@
-// The whole geodesic interior-point solve of a batch of small SOCPs, one
-// scenario per thread, for Hopper (sm_90a).
+// The whole geodesic interior-point solve of a batch of small SOCPs, a team
+// of lanes per scenario, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel conex_tpu/parallel/fused_socp.py:234 (the
 // inner `kernel` of `_make_kernel`, launched by `_solve_padded` and
@@ -7,44 +7,62 @@
 //
 //   max b_s'y  s.t.  c_sj - A_sj y in Q^{n+1},  j = 0..nc-1,
 //
-// and one thread runs its whole solve: per Newton iteration the Schur
-// assembly through Q(w^1/2), the m x m Cholesky with its fail flag, the
-// triangular solves and refinement, the divergence mu update, the Newton
+// and one team of TEAM lanes (1, 2, 4, 8, 16 or 32, a template parameter;
+// a warp holds 32/TEAM teams; the library holds TEAM 8 and 32, the two the
+// plan picks, and a build with CONEX_SOCP_ALL_TEAMS defined holds them all)
+// runs its whole solve: per Newton iteration the
+// Schur assembly through Q(w^1/2), the m x m Cholesky with its fail flag,
+// the triangular solves and refinement, the divergence mu update, the Newton
 // solve and the spectral-exp geodesic step, the warmstart abort, the
-// statistics and the stall detector, and the masked merge into the
-// scenario's state; after the loop the dual recovery.  The arithmetic and
-// the order of each expression follow the JAX kernel; sums are taken left
-// to right.  A thread whose scenario is done leaves its loop: the
-// JAX loop's block-wide condition only keeps finished lanes frozen, so
-// every scenario's result is the same.
+// statistics and the stall detector, and the merge into the scenario's
+// state; after the loop the dual recovery.
 //
-// Layout.  The wrapper (conex_tpu_torch/parallel/fused_socp.py) permutes
-// every input to a scenario-last layout, A (nc, n+1, m, S), c and w
-// (nc, n+1, S), b and y (m, S), stats (T, S), so the 32 threads of a warp
-// read 32 neighbouring addresses.  Per-scenario working arrays (w^1/2, the
-// panel WA = Q(w^1/2) A, G, its Cholesky factor L, the right-hand sides)
-// live in one scratch buffer the wrapper allocates, in the same layout:
-// there is no cap on m or n, and no per-thread local memory.
+// Work within a team.  The lanes split the independent outputs of a stage:
+// the columns of the panel WA = Q(w^1/2) A, the entries of G's lower
+// triangle and of AQc, the rows below the pivot of a Cholesky column, the
+// rows of A y - k c, the entries of each cone update and the rows of the
+// refinement's G x.  Every sum is still taken by one lane, from zero, left
+// to right, in the order of the plain version; the dependent scalar chains
+// (cone dots, |x_1|^2, the folds over cones, the mu update, the statistics)
+// run on every lane of the team in the same order, so every lane holds the
+// same bits and the control flags stay uniform within the team, and the two
+// triangular substitutions run on the team's first lane.  Stages are
+// separated by __syncwarp over the team's lanes only: a team whose scenario
+// is done leaves its loop while the other teams of its warp go on.
 //
-// What bounds it.  At the benchmark shape (nc = 1, n = 20, m = 10, f32)
-// a scenario makes about 6,900 loads and stores of A and its scratch per
-// iteration (27.6 KB), a third of them the Gram sum over the panel WA,
-// against a few thousand floating-point operations: far below the card's
-// balance of operations to bytes.  Below about 10,000 scenarios there are
-// too few threads to hide the latency of that chain of accesses (one block
-// of 128 threads per SM at most), and the time does not grow with S; on an
-// H100 a 30-iteration solve takes about 4.5 ms at S = 1,000 and at
-// S = 10,000, and 21 ms at S = 100,000, where the traffic (about 4 TB/s)
-// is served partly by L1 and L2 and partly by device memory.  The design
-// keeps every access coalesced and reads A in place; accumulating G from
-// one row of WA at a time in registers, and a warp per scenario at small
-// S, are later work.
+// Memory.  The plan (parallel/fused_socp.py::socp_plan) chooses the route
+// by shape before the launch.  Shared route: each team's working set (A, c,
+// b, w, y, w^1/2, WA, WC, d, ms, G, L and five m-vectors) lies in dynamic
+// shared memory, at a per-scenario stride of an odd number of elements so
+// that the teams of a warp fall on other banks.
+// The inputs are read in the caller's layout (S, ...), where a block's
+// scenarios are one contiguous range of each input, and staged once per
+// solve with cp.async (4 or 8 bytes per element): the bulk copy needs 16-byte
+// aligned sources and sizes, and a scenario's inputs at the benchmark shape
+// (840 bytes of A, 84 of c and w, 40 of b) put every other scenario off
+// that alignment.  Global route, where one scenario's working set exceeds
+// the shared memory of a block: the same code with the working arrays in a
+// scratch buffer, contiguous per scenario, A, c and b read in place and w
+// and y kept in the output tensors.  Either way the team's first lane
+// writes each iteration's statistics, and the kernel writes y, w and the
+// scalars, straight into the (S, ...) tensors of RawResult.
 //
-// Determinism: each value is computed by one thread in a fixed order; no
-// atomics.  Built without --use_fast_math (sqrt, exp and division are IEEE)
-// and with -fmad=false: every product and sum is rounded on its own, in the
-// order of the plain version (parallel/fused_socp.py::solve_socp_plain),
-// and in float64 the two give the same bits.
+// What bounds it.  At the benchmark shape (nc = 1, n = 20, m = 10, f32) a
+// scenario's working set is 3.3 KB, so about 70 scenarios fit on an SM and
+// the device-memory traffic of a solve is its inputs and outputs (0.15 GB at
+// S = 100,000).  What is left is the latency of the dependent chains (the
+// two substitutions, the pivots, the cone dots) and the issue slots they
+// take; TEAM trades the two (PERF.md, tools/kernel_costs.py k2).  No tensor
+// cores: an mma would change the rounding and the order of G's sums, and
+// the kernel's only tight test is its bit-for-bit agreement with the plain
+// version.
+//
+// Determinism: each value is computed by one lane (or by all lanes of a
+// team alike) in a fixed order; no atomics.  Built without --use_fast_math
+// (sqrt, exp and division are IEEE) and with -fmad=false: every product and
+// sum is rounded on its own, in the order of the plain version
+// (parallel/fused_socp.py::solve_socp_plain), and the two give the same
+// bits.
 
 #include <cuda_runtime.h>
 
@@ -52,7 +70,8 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+// Launch bounds: the plan never asks for more threads per block.
+constexpr int kMaxThreads = 256;
 
 // Integer parameters, in the order of the host array.
 struct IParams {
@@ -66,6 +85,11 @@ struct DParams {
       stall_tol;
 };
 
+// The plan of a launch, in the order of the host array.
+struct Plan {
+  int team, per_block, shared, stride;
+};
+
 template <typename T>
 struct Args {
   const T *A, *c, *b, *w0, *k0, *bsc0, *csc0;
@@ -73,17 +97,10 @@ struct Args {
   int *fail, *mir, *stall, *niter, *aborted;
   T *stats_k, *stats_d, *scratch;
   int S, nc, n1, m;
+  int per_block;  // scenarios per block
+  int stride;     // elements of one scenario's region (shared or scratch)
   IParams ip;
   DParams dp;
-};
-
-// One scenario's view of a scenario-last array: element j is p[j * S].
-template <typename P>
-struct Lane {
-  P* p;
-  int64_t st;
-  __device__ P& operator[](int64_t j) const { return p[j * st]; }
-  __device__ Lane at(int64_t j) const { return Lane{p + j * st, st}; }
 };
 
 // IEEE math in the working type.
@@ -109,40 +126,33 @@ __device__ __forceinline__ T nmin(T a, T b) {
   return (a < b || a != a) ? a : b;
 }
 
-template <typename T, typename X>
-__device__ T tail_sq(X x, int n1) {
-  T ss = T(0);
-  for (int r = 1; r < n1; ++r) ss += x[r] * x[r];
-  return ss;
+// s + term(lo) + term(lo + 1) + ... + term(hi - 1), added left to right.
+// Unrolled by 4, so the loads of the next terms are in flight while the
+// chain adds; longer chunks and out-of-line stage functions measured
+// slower on an H100 (PERF.md).
+template <typename T, typename F>
+__device__ __forceinline__ T sum_terms(T s, int lo, int hi, F term) {
+#pragma unroll 4
+  for (int i = lo; i < hi; ++i) s = s + term(i);
+  return s;
 }
 
-// out = fn(lam1) P1 + fn(lam2) P2 (spin.py::_spectral_apply); out may be x.
-template <typename T, typename X, typename Fn>
-__device__ void spectral(X x, Lane<T> out, int n1, Fn fn) {
-  const T h = x[0];
-  const T nq = xsqrt(tail_sq<T>(x, n1));
-  const T f1 = fn(h + nq), f2 = fn(h - nq);
-  const T hd = T(0.5) * (f1 - f2);
-  out[0] = T(0.5) * (f1 + f2);
-  for (int r = 1; r < n1; ++r) {
-    const T qhat = nq > T(0) ? x[r] / (nq == T(0) ? T(1) : nq) : T(0);
-    out[r] = hd * qhat;
-  }
+// s - term(lo) - term(lo + 1) - ... - term(hi - 1), left to right.
+template <typename T, typename F>
+__device__ __forceinline__ T sub_terms(T s, int lo, int hi, F term) {
+#pragma unroll 4
+  for (int i = lo; i < hi; ++i) s = s - term(i);
+  return s;
 }
 
-template <typename T, typename X>
-__device__ T det(X x, int n1) {
+template <typename T>
+__device__ T tail_sq(const T* x, int n1) {
+  return sum_terms(T(0), 1, n1, [x](int r) { return x[r] * x[r]; });
+}
+
+template <typename T>
+__device__ T det(const T* x, int n1) {
   return x[0] * x[0] - tail_sq<T>(x, n1);
-}
-
-// out = Q(x) y = 2 <x,y> x - det(x) R y; out must not alias x or y.
-template <typename T, typename X, typename Y>
-__device__ void qrep(X x, Y y, Lane<T> out, int n1) {
-  T dot = T(0);
-  for (int r = 0; r < n1; ++r) dot += x[r] * y[r];
-  const T dx = det<T>(x, n1);
-  out[0] = T(2) * dot * x[0] + dx * -y[0];
-  for (int r = 1; r < n1; ++r) out[r] = T(2) * dot * x[r] + dx * y[r];
 }
 
 // The mu fallback chain (conex_tpu/solver/mu.py::mu_from_divergence).
@@ -190,171 +200,287 @@ __device__ T mu_from_divergence(T lmin, T lmax, T frob, T trace, T rank,
   return (k < T(0) && trace > T(1e-12)) ? kq : k;
 }
 
-template <typename T>
+// One scenario, seen by one lane of its team.  Arrays are contiguous per
+// scenario: A (nc, n1, m), c, w, wsqrt, WC, d (nc, n1), WA (nc, n1, m), G and
+// L (m, m) row-major.  Loops `for (i = lane; i < n; i += TEAM)` give each
+// lane its share of a stage's outputs.
+template <typename T, int TEAM>
 struct Scenario {
-  int nc, n1, m;
-  Lane<const T> A, c, b;
-  Lane<T> w, y;
-  // scratch
-  Lane<T> wsqrt, WA, WC, d, ms, G, L, AW, AQc, rhs, x, tmp;
+  int nc, n1, m, lane;
+  unsigned mask;
+  const T *A, *c, *b;
+  T *w, *y;
+  T *wsqrt, *WA, *WC, *d, *ms, *G, *L, *AW, *AQc, *rhs, *x, *tmp;
 
-  __device__ Lane<const T> Acol(int j, int v) const {  // A[j, :, v]
-    return Lane<const T>{A.p + (int64_t(j) * n1 * m + v) * A.st, A.st * m};
+  __device__ void sync() const {
+    if (TEAM > 1) __syncwarp(mask);
   }
-  __device__ Lane<T> WAcol(int j, int v) const {
-    return Lane<T>{WA.p + (int64_t(j) * n1 * m + v) * WA.st, WA.st * m};
+
+  // out = fn(lam1) P1 + fn(lam2) P2 (spin.py::_spectral_apply); out may be x.
+  template <typename Fn>
+  __device__ void spectral(const T* x, T* out, Fn fn) const {
+    const T h = x[0];
+    const T nq = xsqrt(tail_sq<T>(x, n1));
+    const T f1 = fn(h + nq), f2 = fn(h - nq);
+    const T hd = T(0.5) * (f1 - f2);
+    sync();  // every lane has read x before out (maybe x) is written
+    for (int r = lane; r < n1; r += TEAM) {
+      if (r == 0) {
+        out[0] = T(0.5) * (f1 + f2);
+      } else {
+        const T qhat = nq > T(0) ? x[r] / (nq == T(0) ? T(1) : nq) : T(0);
+        out[r] = hd * qhat;
+      }
+    }
+    sync();
   }
-  __device__ Lane<const T> ccone(int j) const { return c.at(int64_t(j) * n1); }
-  __device__ Lane<T> cone(Lane<T> v, int j) const { return v.at(int64_t(j) * n1); }
+
+  // out = Q(x) y = 2 <x,y> x - det(x) R y, plus e if plus_e; out must not
+  // alias x or y.
+  __device__ void qrep(const T* x, const T* yv, T* out, bool plus_e) const {
+    const T dot = sum_terms(T(0), 0, n1, [=](int r) { return x[r] * yv[r]; });
+    const T dx = det<T>(x, n1);
+    for (int r = lane; r < n1; r += TEAM) {
+      if (r == 0) {
+        const T o = T(2) * dot * x[0] + dx * -yv[0];
+        out[0] = plus_e ? o + T(1) : o;
+      } else {
+        out[r] = T(2) * dot * x[r] + dx * yv[r];
+      }
+    }
+    sync();
+  }
+
+  __device__ void set_identity(int j) const {
+    T* wj = w + j * n1;
+    for (int r = lane; r < n1; r += TEAM) wj[r] = r == 0 ? T(1) : T(0);
+  }
 
   // Schur-complement contributions summed over the cones
   // (soc_constraint.cc:272-303): w^1/2, WA, WsqrtC, G, AW, AQc.
-  __device__ void assemble(T& w_dot_c, T& c_dot_Qc) {
+  __device__ void assemble(T& w_dot_c, T& c_dot_Qc) const {
     T wdc = T(0), cdq = T(0);
-    for (int v = 0; v < m; ++v) AW[v] = T(0);
+    for (int v = lane; v < m; v += TEAM) AW[v] = T(0);
     for (int j = 0; j < nc; ++j) {
-      const Lane<T> ws = cone(wsqrt, j), wj = cone(w, j), wc = cone(WC, j);
-      spectral<T>(wj, ws, n1, [](T t) { return xsqrt(t); });
+      T* ws = wsqrt + j * n1;
+      const T* wj = w + j * n1;
+      T* wc = WC + j * n1;
+      spectral(wj, ws, [](T t) { return xsqrt(t); });
       const T dws = det<T>(ws, n1);
-      qrep<T>(ws, ccone(j), wc, n1);
+      qrep(ws, c + j * n1, wc, false);
       wdc += wc[0];
-      for (int r = 0; r < n1; ++r) cdq += wc[r] * wc[r];
-      for (int v = 0; v < m; ++v) {
-        const Lane<const T> a = Acol(j, v);
-        const Lane<T> wa = WAcol(j, v);
-        T dot = T(0), aw = T(0);
-        for (int r = 0; r < n1; ++r) {
-          dot += ws[r] * a[r];
-          aw += a[r] * wj[r];
-        }
+      cdq = sum_terms(cdq, 0, n1, [=](int r) { return wc[r] * wc[r]; });
+      // Lane by column v of the panel: A[j, :, v] and WA[j, :, v].
+      const T* Aj = A + int64_t(j) * n1 * m;
+      T* WAj = WA + int64_t(j) * n1 * m;
+      for (int v = lane; v < m; v += TEAM) {
+        const T* a = Aj + v;
+        const T dot = sum_terms(T(0), 0, n1, [=](int r) { return ws[r] * a[r * m]; });
+        const T aw = sum_terms(T(0), 0, n1, [=](int r) { return a[r * m] * wj[r]; });
         AW[v] += aw;
-        wa[0] = T(2) * dot * ws[0] + dws * -a[0];
-        for (int r = 1; r < n1; ++r) wa[r] = T(2) * dot * ws[r] + dws * a[r];
+        WAj[v] = T(2) * dot * ws[0] + dws * -Aj[v];
+        for (int r = 1; r < n1; ++r)
+          WAj[r * m + v] = T(2) * dot * ws[r] + dws * Aj[r * m + v];
       }
     }
-    for (int v = 0; v < m; ++v) {
-      AW[v] = T(2) * AW[v];
-      for (int u = 0; u <= v; ++u) {
-        T g = T(0);
-        for (int j = 0; j < nc; ++j) {
-          const Lane<T> pv = WAcol(j, v), pu = WAcol(j, u);
-          for (int r = 0; r < n1; ++r) g += pv[r] * pu[r];
+    for (int v = lane; v < m; v += TEAM) AW[v] = T(2) * AW[v];
+    sync();
+    // Lane by entry: (v, u), u <= v, of G's lower triangle in row-major
+    // order, then the m entries of AQc.
+    const int ntri = m * (m + 1) / 2, rows = nc * n1;
+    int v = 0, u = lane;
+    while (u > v) {
+      u -= v + 1;
+      ++v;
+    }
+    for (int e = lane; e < ntri + m; e += TEAM) {
+      if (e < ntri) {
+        const T *pv = WA + v, *pu = WA + u;
+        const int mm = m;
+        const T g = sum_terms(T(0), 0, rows, [=](int q) { return pv[q * mm] * pu[q * mm]; });
+        G[v * m + u] = T(2) * g;
+        G[u * m + v] = T(2) * g;
+        u += TEAM;
+        while (u > v && v < m) {
+          u -= v + 1;
+          ++v;
         }
-        G[int64_t(v) * m + u] = T(2) * g;
-        G[int64_t(u) * m + v] = T(2) * g;
+      } else {
+        const int a = e - ntri;
+        const T *pa = WA + a, *wc = WC;
+        const int mm = m;
+        const T q = sum_terms(T(0), 0, rows, [=](int r) { return pa[r * mm] * wc[r]; });
+        AQc[a] = T(2) * q;
       }
-      T q = T(0);
-      for (int j = 0; j < nc; ++j) {
-        const Lane<T> pv = WAcol(j, v), wc = cone(WC, j);
-        for (int r = 0; r < n1; ++r) q += pv[r] * wc[r];
-      }
-      AQc[v] = T(2) * q;
     }
+    sync();
     w_dot_c = T(2) * wdc;
     c_dot_Qc = T(2) * cdq;
   }
 
   // L L^T = G, column by column (fused_socp.py::_chol): a pivot that is not
   // > 0 or not finite fails, and the column goes on with a pivot of 1.
-  __device__ bool cholesky() {
+  // Every lane takes the pivot; the lanes split the rows below it.
+  __device__ bool cholesky() const {
     bool fail = false;
     for (int j = 0; j < m; ++j) {
-      T d = T(1);
-      for (int i = j; i < m; ++i) {
-        T acc = T(0);
-        for (int t = 0; t < j; ++t) acc += L[int64_t(i) * m + t] * L[int64_t(j) * m + t];
-        const T col = G[int64_t(i) * m + j] - acc;
-        if (i == j) {
-          fail = fail || !(col > T(0)) || !finite(col);
-          d = xsqrt(col > T(0) ? col : T(1));
-          L[int64_t(j) * m + j] = d;
-        } else {
-          L[int64_t(i) * m + j] = col / d;
-        }
+      const T* lj = L + j * m;
+      const T acc = sum_terms(T(0), 0, j, [=](int t) { return lj[t] * lj[t]; });
+      const T piv = G[j * m + j] - acc;
+      fail = fail || !(piv > T(0)) || !finite(piv);
+      const T dj = xsqrt(piv > T(0) ? piv : T(1));
+      if (lane == 0) L[j * m + j] = dj;
+      for (int i = j + 1 + lane; i < m; i += TEAM) {
+        const T* li = L + i * m;
+        const T s = sum_terms(T(0), 0, j, [=](int t) { return li[t] * lj[t]; });
+        const T col = G[i * m + j] - s;
+        L[i * m + j] = col / dj;
       }
+      sync();
     }
     return fail;
   }
 
-  // v <- (L L^T)^{-1} v in place (fused_socp.py::_chol_solve).
-  __device__ void chol_solve(Lane<T> v) {
-    for (int j = 0; j < m; ++j) {
-      T s = v[j];
-      for (int t = 0; t < j; ++t) s = s - L[int64_t(j) * m + t] * v[t];
-      v[j] = s / L[int64_t(j) * m + j];
+  // v <- (L L^T)^{-1} v in place (fused_socp.py::_chol_solve), on the
+  // team's first lane.
+  __device__ void chol_solve(T* v) const {
+    if (lane == 0) {
+      const T* l = L;
+      const int mm = m;
+      for (int j = 0; j < m; ++j) {
+        const T* lj = l + j * mm;
+        const T s = sub_terms(v[j], 0, j, [=](int t) { return lj[t] * v[t]; });
+        v[j] = s / L[j * m + j];
+      }
+      for (int j = m - 1; j >= 0; --j) {
+        const T* lc = l + j;
+        const T s = sub_terms(v[j], j + 1, m, [=](int t) { return lc[t * mm] * v[t]; });
+        v[j] = s / L[j * m + j];
+      }
     }
-    for (int j = m - 1; j >= 0; --j) {
-      T s = v[j];
-      for (int t = j + 1; t < m; ++t) s = s - L[int64_t(t) * m + j] * v[t];
-      v[j] = s / L[int64_t(j) * m + j];
-    }
+    sync();
   }
 
-  // x <- G^{-1} rhs with `refine` steps of iterative refinement.
-  __device__ void solve_kkt(int refine) {
-    for (int v = 0; v < m; ++v) x[v] = rhs[v];
+  // x <- G^{-1} rhs with `refine` steps of iterative refinement; rhs must
+  // be complete (synced) on entry.
+  __device__ void solve_kkt(int refine) const {
+    for (int v = lane; v < m; v += TEAM) x[v] = rhs[v];
+    sync();
     chol_solve(x);
     for (int it = 0; it < refine; ++it) {
-      for (int i = 0; i < m; ++i) {
-        T gx = T(0);
-        for (int u = 0; u < m; ++u) gx += G[int64_t(i) * m + u] * x[u];
+      for (int i = lane; i < m; i += TEAM) {
+        const T *gi = G + i * m, *xv = x;
+        const T gx = sum_terms(T(0), 0, m, [=](int u) { return gi[u] * xv[u]; });
         tmp[i] = rhs[i] - gx;
       }
+      sync();
       chol_solve(tmp);
-      for (int v = 0; v < m; ++v) x[v] = x[v] + tmp[v];
+      for (int v = lane; v < m; v += TEAM) x[v] = x[v] + tmp[v];
+      sync();
     }
   }
 
-  // ms <- A_j y - cw c_j (soc_constraint.cc:193-197).
-  __device__ void minus_slack(int j, Lane<T> yv, T cw) {
-    const Lane<const T> cj = ccone(j);
-    for (int r = 0; r < n1; ++r) {
-      const Lane<const T> arow = A.at((int64_t(j) * n1 + r) * m);
-      T ay = T(0);
-      for (int v = 0; v < m; ++v) ay += arow[v] * yv[v];
+  // ms <- A_j y - cw c_j (soc_constraint.cc:193-197), lane by row.  Every
+  // lane must be done reading ms.
+  __device__ void minus_slack(int j, const T* yv, T cw) const {
+    const T* cj = c + j * n1;
+    for (int r = lane; r < n1; r += TEAM) {
+      const T* arow = A + (int64_t(j) * n1 + r) * m;
+      const T ay = sum_terms(T(0), 0, m, [=](int v) { return arow[v] * yv[v]; });
       ms[r] = ay - cw * cj[r];
     }
+    sync();
   }
 };
 
+// cp.async of one element, global to shared (4 or 8 bytes).
 template <typename T>
-__global__ void __launch_bounds__(kThreads) socp_kernel(const Args<T> a) {
-  const int64_t s = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (s >= a.S) return;
-  const int64_t S = a.S;
-  const int nc = a.nc, n1 = a.n1, m = a.m;
-  const IParams ip = a.ip;
-  const int Tn = ip.T;
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+               "l"(src), "n"(sizeof(T)));
+}
 
-  Scenario<T> sc;
+// Stage `per` elements of each of `count` scenarios, contiguous from src,
+// to dst + q * stride, with every thread of the block.
+template <typename T>
+__device__ void stage(T* dst, const T* src, int count, int per, int stride) {
+  const int total = count * per;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int q = i / per;
+    copy_async(dst + q * stride + (i - q * per), src + i);
+  }
+}
+
+template <typename T, int TEAM, bool SHARED>
+__global__ void __launch_bounds__(kMaxThreads) socp_kernel(const Args<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nc = a.nc, n1 = a.n1, m = a.m, Tn = a.ip.T;
+  const int cn = nc * n1;
+  const int team = threadIdx.x / TEAM, lane = threadIdx.x % TEAM;
+  const int64_t s0 = int64_t(blockIdx.x) * a.per_block;
+  const int count = int(a.S - s0 < a.per_block ? a.S - s0 : a.per_block);
+  const int64_t s = s0 + team;
+
+  Scenario<T, TEAM> sc;
   sc.nc = nc;
   sc.n1 = n1;
   sc.m = m;
-  sc.A = Lane<const T>{a.A + s, S};
-  sc.c = Lane<const T>{a.c + s, S};
-  sc.b = Lane<const T>{a.b + s, S};
-  sc.w = Lane<T>{a.w + s, S};
-  sc.y = Lane<T>{a.y + s, S};
-  int64_t off = 0;
-  auto carve = [&](int64_t n) {
-    Lane<T> v{a.scratch + off * S + s, S};
-    off += n;
-    return v;
-  };
-  const int64_t cn = int64_t(nc) * n1;
-  sc.wsqrt = carve(cn);
-  sc.WA = carve(cn * m);
-  sc.WC = carve(cn);
-  sc.d = carve(cn);
-  sc.ms = carve(n1);
-  sc.G = carve(int64_t(m) * m);
-  sc.L = carve(int64_t(m) * m);
-  sc.AW = carve(m);
-  sc.AQc = carve(m);
-  sc.rhs = carve(m);
-  sc.x = carve(m);
-  sc.tmp = carve(m);
-  const Lane<T> stats_k{a.stats_k + s, S}, stats_d{a.stats_d + s, S};
+  sc.lane = lane;
+  sc.mask = TEAM == 32 ? 0xffffffffu
+                       : ((1u << TEAM) - 1u) << ((threadIdx.x % 32) / TEAM * TEAM);
+  T* work;  // w^1/2, WA, WC, d, ms, G, L, AW, AQc, rhs, x, tmp
+  if (SHARED) {
+    // Region of a scenario: A, c, b, w, y, then the working arrays.
+    T* smem = reinterpret_cast<T*>(smem_raw);
+    const int offA = 0, offc = cn * m, offb = offc + cn, offw = offb + m;
+    stage(smem + offA, a.A + s0 * cn * m, count, cn * m, a.stride);
+    stage(smem + offc, a.c + s0 * cn, count, cn, a.stride);
+    stage(smem + offb, a.b + s0 * m, count, m, a.stride);
+    stage(smem + offw, a.w0 + s0 * cn, count, cn, a.stride);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    if (team >= count) return;
+    T* region = smem + int64_t(team) * a.stride;
+    sc.A = region + offA;
+    sc.c = region + offc;
+    sc.b = region + offb;
+    sc.w = region + offw;
+    sc.y = sc.w + cn;
+    work = sc.y + m;
+  } else {
+    if (team >= count) return;
+    sc.A = a.A + s * cn * m;
+    sc.c = a.c + s * cn;
+    sc.b = a.b + s * m;
+    sc.w = a.w + s * cn;
+    sc.y = a.y + s * m;
+    work = a.scratch + s * a.stride;
+    for (int i = lane; i < cn; i += TEAM) sc.w[i] = a.w0[s * cn + i];
+  }
+  T* const stats_k = a.stats_k + s * Tn;
+  T* const stats_d = a.stats_d + s * Tn;
+  {
+    T* p = work;
+    auto carve = [&p](int64_t n) {
+      T* v = p;
+      p += n;
+      return v;
+    };
+    sc.wsqrt = carve(cn);
+    sc.WA = carve(int64_t(cn) * m);
+    sc.WC = carve(cn);
+    sc.d = carve(cn);
+    sc.ms = carve(n1);
+    sc.G = carve(int64_t(m) * m);
+    sc.L = carve(int64_t(m) * m);
+    sc.AW = carve(m);
+    sc.AQc = carve(m);
+    sc.rhs = carve(m);
+    sc.x = carve(m);
+    sc.tmp = carve(m);
+  }
+  const IParams ip = a.ip;
 
   // Parameters in the working type (as the JAX kernel's weakly typed
   // Python scalars are).
@@ -365,18 +491,12 @@ __global__ void __launch_bounds__(kThreads) socp_kernel(const Args<T> a) {
   const bool warmstart = ip.warmstart != 0, fixed = ip.fixed != 0;
   const bool stall_on = ip.stall_iters > 0 && !fixed;
 
-  auto set_identity = [&](int j) {
-    const Lane<T> wj = sc.cone(sc.w, j);
-    wj[0] = T(1);
-    for (int r = 1; r < n1; ++r) wj[r] = T(0);
-  };
-
-  for (int64_t i = 0; i < cn; ++i) sc.w[i] = a.w0[i * S + s];
-  for (int v = 0; v < m; ++v) sc.y[v] = T(0);
-  for (int g = 0; g < Tn; ++g) {
+  for (int v = lane; v < m; v += TEAM) sc.y[v] = T(0);
+  for (int g = lane; g < Tn; g += TEAM) {
     stats_k[g] = T(0);
     stats_d[g] = T(0);
   }
+  sc.sync();
   T k = a.k0[s], k_max = T(a.dp.k_max0), b_sc = a.bsc0[s], c_sc = a.csc0[s];
   T kkt_err = T(0), by = T(-1), cx = T(1), d_inf = T(0);
   int centering = 0, num_iter = 0, stall = 0;
@@ -404,11 +524,9 @@ __global__ void __launch_bounds__(kThreads) socp_kernel(const Args<T> a) {
     T b_sc_n = b_sc, c_sc_n = c_sc, k_max_n = k_max;
     if (ip.rescale && g < 1) {
       if (!warmstart) {  // warmstart keeps the caller's scalings
-        T bb = T(0), qq = T(0);
-        for (int v = 0; v < m; ++v) {
-          bb += sc.b[v] * sc.b[v];
-          qq += sc.AQc[v] * sc.AQc[v];
-        }
+        const T *bv = sc.b, *qv = sc.AQc;
+        const T bb = sum_terms(T(0), 0, m, [=](int v) { return bv[v] * bv[v]; });
+        const T qq = sum_terms(T(0), 0, m, [=](int v) { return qv[v] * qv[v]; });
         b_sc_n = T(1) / (T(1) + xsqrt(bb));
         c_sc_n = T(1) / (T(1) + xsqrt(qq));
       }
@@ -423,7 +541,8 @@ __global__ void __launch_bounds__(kThreads) socp_kernel(const Args<T> a) {
       b_sc = b_sc_n;
       c_sc = c_sc_n;
       if (warmstart && g == 0) {
-        for (int j = 0; j < nc; ++j) set_identity(j);
+        for (int j = 0; j < nc; ++j) sc.set_identity(j);
+        sc.sync();
         aborted = true;
         continue;
       }
@@ -434,22 +553,22 @@ __global__ void __launch_bounds__(kThreads) socp_kernel(const Args<T> a) {
     }
 
     // --- mu update (divergence mode, cone_program.cc:374-398) ---
-    for (int v = 0; v < m; ++v)
+    for (int v = lane; v < m; v += TEAM)
       sc.rhs[v] = sc.AQc[v] * c_sc_n - sc.b[v] * b_sc_n;
+    sc.sync();
     sc.solve_kkt(ip.refine);
     T lam_min = T(0), lam_max = T(0), frob = T(0), trace = T(0);
     for (int j = 0; j < nc; ++j) {
       sc.minus_slack(j, sc.x, c_sc_n);
-      const Lane<T> ws = sc.cone(sc.wsqrt, j);
-      T dot = T(0);
-      for (int r = 0; r < n1; ++r) dot += ws[r] * sc.ms[r];
+      const T *ws = sc.wsqrt + j * n1, *msv = sc.ms;
+      const T dot = sum_terms(T(0), 0, n1, [=](int r) { return ws[r] * msv[r]; });
       const T dws = det<T>(ws, n1);
       const T h = T(2) * dot * ws[0] + dws * -sc.ms[0];
-      T tt = T(0);
-      for (int r = 1; r < n1; ++r) {
-        const T e = T(2) * dot * ws[r] + dws * sc.ms[r];
-        tt += e * e;
-      }
+      const T tt = sum_terms(T(0), 1, n1, [=](int r) {
+        const T e = T(2) * dot * ws[r] + dws * msv[r];
+        return e * e;
+      });
+      sc.sync();  // every lane has read ms
       const T nq = xsqrt(tt);
       const T ev1 = h + nq, ev2 = h - nq;
       const T lmax_c = -nmin(ev1, ev2), lmin_c = -nmax(ev1, ev2);
@@ -469,19 +588,18 @@ __global__ void __launch_bounds__(kThreads) socp_kernel(const Args<T> a) {
     k_new = nmin(nmax(k_new, k_min_clamp), k_max_n);
 
     // --- Newton solve + step (cone_program.cc:409-436) ---
-    for (int v = 0; v < m; ++v)
+    for (int v = lane; v < m; v += TEAM)
       sc.rhs[v] = k_new * (sc.b[v] * b_sc_n + sc.AQc[v] * c_sc_n) -
                   T(2) * sc.AW[v];
+    sc.sync();
     sc.solve_kkt(ip.refine);
     const T c_weight = k_new * c_sc_n;
     T norminf = T(0), normsq = T(0);
     for (int j = 0; j < nc; ++j) {
-      const Lane<T> dj = sc.cone(sc.d, j);
+      const T* dj = sc.d + j * n1;
       sc.minus_slack(j, sc.x, c_weight);
-      qrep<T>(sc.cone(sc.wsqrt, j), sc.ms, dj, n1);
-      dj[0] = dj[0] + T(1);  // d += e
-      T sq = T(0);
-      for (int r = 0; r < n1; ++r) sq += dj[r] * dj[r];
+      sc.qrep(sc.wsqrt + j * n1, sc.ms, sc.d + j * n1, true);  // d += e
+      const T sq = sum_terms(T(0), 0, n1, [=](int r) { return dj[r] * dj[r]; });
       normsq += sq;
       const T nq = xsqrt(tail_sq<T>(dj, n1));
       const T ni = nmax(xabs(dj[0] + nq), xabs(dj[0] - nq));
@@ -494,23 +612,23 @@ __global__ void __launch_bounds__(kThreads) socp_kernel(const Args<T> a) {
     const bool ws_abort = warmstart && g == 0 && norminf >= ws_abort_thr;
     for (int j = 0; j < nc; ++j) {
       if (ws_abort) {
-        set_identity(j);
+        sc.set_identity(j);
         continue;
       }
-      const Lane<T> dj = sc.cone(sc.d, j);
-      for (int r = 0; r < n1; ++r) sc.ms[r] = step * dj[r];
-      spectral<T>(sc.ms, sc.ms, n1, [](T t) { return xexp(t); });
-      qrep<T>(sc.cone(sc.wsqrt, j), sc.ms, sc.cone(sc.w, j), n1);
+      const T* dj = sc.d + j * n1;
+      for (int r = lane; r < n1; r += TEAM) sc.ms[r] = step * dj[r];
+      sc.sync();
+      sc.spectral(sc.ms, sc.ms, [](T t) { return xexp(t); });
+      sc.qrep(sc.wsqrt + j * n1, sc.ms, sc.w + j * n1, false);
     }
+    sc.sync();
 
     // --- statistics (cone_program.cc:439-471) ---
     const T d_2sq = xabs(normsq);
     const T d_inf_new = xabs(norminf);
-    T bx = T(0), qx = T(0);
-    for (int v = 0; v < m; ++v) {
-      bx += sc.b[v] * sc.x[v];
-      qx += sc.AQc[v] * sc.x[v];
-    }
+    const T *bv = sc.b, *qv = sc.AQc, *xv = sc.x;
+    const T bx = sum_terms(T(0), 0, m, [=](int v) { return bv[v] * xv[v]; });
+    const T qx = sum_terms(T(0), 0, m, [=](int v) { return qv[v] * xv[v]; });
     const T by_new = bx / (k_new * c_sc_n);
     const T cx_new = (T(2) * w_dot_c + qx - k_new * c_dot_Qc * c_sc_n) /
                      (k_new * b_sc_n);
@@ -529,7 +647,7 @@ __global__ void __launch_bounds__(kThreads) socp_kernel(const Args<T> a) {
     }
 
     // --- merge: the scenario takes the iteration ---
-    for (int v = 0; v < m; ++v) sc.y[v] = sc.x[v];
+    for (int v = lane; v < m; v += TEAM) sc.y[v] = sc.x[v];
     k = k_new;
     k_max = k_max_n;
     b_sc = b_sc_n;
@@ -546,8 +664,11 @@ __global__ void __launch_bounds__(kThreads) socp_kernel(const Args<T> a) {
     // one-iteration flag: set on the aborting iteration, cleared by the
     // next completed iteration
     aborted = ws_abort;
-    stats_k[g] = k;
-    stats_d[g] = d_inf;
+    if (lane == 0) {
+      stats_k[g] = k;
+      stats_d[g] = d_inf;
+    }
+    sc.sync();
   }
 
   if (ip.dual && !fail) {
@@ -556,40 +677,65 @@ __global__ void __launch_bounds__(kThreads) socp_kernel(const Args<T> a) {
     T unused0, unused1;
     sc.assemble(unused0, unused1);
     if (!sc.cholesky()) {
-      for (int v = 0; v < m; ++v)
+      for (int v = lane; v < m; v += TEAM)
         sc.rhs[v] = k * sc.b[v] * b_sc - sc.AW[v];
+      sc.sync();
       sc.solve_kkt(ip.refine);
       for (int j = 0; j < nc; ++j) {
-        const Lane<T> wj = sc.cone(sc.w, j);
+        T* wj = sc.w + j * n1;
         sc.minus_slack(j, sc.x, T(0));
-        T dot = T(0);
-        for (int r = 0; r < n1; ++r) dot += wj[r] * sc.ms[r];
+        const T* msv = sc.ms;
+        const T dot = sum_terms(T(0), 0, n1, [=](int r) { return wj[r] * msv[r]; });
         const T dw = det<T>(wj, n1);
-        wj[0] = wj[0] + (T(2) * dot * wj[0] + dw * -sc.ms[0]);
-        for (int r = 1; r < n1; ++r)
-          wj[r] = wj[r] + (T(2) * dot * wj[r] + dw * sc.ms[r]);
+        sc.sync();  // every lane has read w_j and ms
+        for (int r = lane; r < n1; r += TEAM) {
+          if (r == 0)
+            wj[0] = wj[0] + (T(2) * dot * wj[0] + dw * -sc.ms[0]);
+          else
+            wj[r] = wj[r] + (T(2) * dot * wj[r] + dw * sc.ms[r]);
+        }
+        sc.sync();
       }
     }
   }
 
-  a.k[s] = k;
-  a.kmax[s] = k_max;
-  a.bsc[s] = b_sc;
-  a.csc[s] = c_sc;
-  a.by[s] = by;
-  a.cx[s] = cx;
-  a.fail[s] = fail;
-  a.mir[s] = mir;
-  a.stall[s] = stall;
-  a.niter[s] = num_iter;
-  a.aborted[s] = aborted;
+  if (SHARED) {
+    for (int i = lane; i < cn; i += TEAM) a.w[s * cn + i] = sc.w[i];
+    for (int v = lane; v < m; v += TEAM) a.y[s * m + v] = sc.y[v];
+  }
+  if (lane == 0) {
+    a.k[s] = k;
+    a.kmax[s] = k_max;
+    a.bsc[s] = b_sc;
+    a.csc[s] = c_sc;
+    a.by[s] = by;
+    a.cx[s] = cx;
+    a.fail[s] = fail;
+    a.mir[s] = mir;
+    a.stall[s] = stall;
+    a.niter[s] = num_iter;
+    a.aborted[s] = aborted;
+  }
 }
 
-template <typename T>
-int launch(const Args<T>& a, cudaStream_t stream) {
-  const int blocks = (a.S + kThreads - 1) / kThreads;
-  socp_kernel<T><<<blocks, kThreads, 0, stream>>>(a);
+template <typename T, int TEAM, bool SHARED>
+int launch_one(const Args<T>& a, cudaStream_t stream) {
+  auto kernel = socp_kernel<T, TEAM, SHARED>;
+  const int shared_bytes = SHARED ? a.per_block * a.stride * int(sizeof(T)) : 0;
+  if (SHARED) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int blocks = int((int64_t(a.S) + a.per_block - 1) / a.per_block);
+  kernel<<<blocks, a.per_block * TEAM, shared_bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int TEAM>
+int launch_team(const Args<T>& a, const Plan& p, cudaStream_t stream) {
+  return p.shared ? launch_one<T, TEAM, true>(a, stream)
+                  : launch_one<T, TEAM, false>(a, stream);
 }
 
 template <typename T>
@@ -597,34 +743,60 @@ int run(const T* A, const T* c, const T* b, const T* w0, const T* k0,
         const T* bsc0, const T* csc0, T* y, T* w, T* k, T* kmax, T* bsc,
         T* csc, T* by, T* cx, int* fail, int* mir, int* stall, int* niter,
         int* aborted, T* stats_k, T* stats_d, T* scratch, int S, int nc,
-        int n1, int m, const int* iparams, const double* dparams,
-        void* stream) {
+        int n1, int m, const int* plan, const int* iparams,
+        const double* dparams, void* stream) {
+  const Plan p{plan[0], plan[1], plan[2], plan[3]};
+  if (p.per_block < 1 || p.per_block * p.team > kMaxThreads)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   Args<T> a{A,   c,     b,    w0,    k0,      bsc0,    csc0,    y,
             w,   k,     kmax, bsc,   csc,     by,      cx,      fail,
             mir, stall, niter, aborted, stats_k, stats_d, scratch, S,
-            nc,  n1,    m,    {},    {}};
+            nc,  n1,    m,    p.per_block, p.stride, {},      {}};
   a.ip = IParams{iparams[0], iparams[1], iparams[2], iparams[3], iparams[4],
                  iparams[5], iparams[6], iparams[7], iparams[8]};
   a.dp = DParams{dparams[0], dparams[1], dparams[2], dparams[3],
                  dparams[4], dparams[5], dparams[6], dparams[7]};
-  return launch<T>(a, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (p.team) {
+    case 8: return launch_team<T, 8>(a, p, st);
+    case 32: return launch_team<T, 32>(a, p, st);
+#ifdef CONEX_SOCP_ALL_TEAMS
+    case 1: return launch_team<T, 1>(a, p, st);
+    case 2: return launch_team<T, 2>(a, p, st);
+    case 4: return launch_team<T, 4>(a, p, st);
+    case 16: return launch_team<T, 16>(a, p, st);
+#endif
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
+// The build compiles this file once per working type, in parallel:
+// CONEX_SOCP_PART 1 defines the float32 entry point only, 2 the float64 one
+// only, and 0 (or none) both.
+#ifndef CONEX_SOCP_PART
+#define CONEX_SOCP_PART 0
+#endif
+
 extern "C" {
 
-// Shapes, all scenario-last and contiguous on the current device:
-// A (nc, n1, m, S); c, w0 and w (nc, n1, S); b and y (m, S); k0, bsc0,
-// csc0 and the scalar outputs (S,); fail, mir, stall, niter, aborted int32
-// (S,); stats_k, stats_d (T, S); scratch (nc*n1*(3+m) + n1 + 2m^2 + 5m, S).
-// iparams (host, 9 ints): T, final_centering_steps, initial centering
-// steps, refinement steps, warmstart, fixed_iterations, enable_rescaling,
-// prepare_dual_variables, mu_stall_iterations.  dparams (host, 8 doubles):
-// kkt_error_tolerance, inv_sqrt_mu_max, the k clamp floor, rank,
-// divergence_upper_bound, final_centering_tolerance,
-// warmstart_abort_threshold, mu_stall_tolerance.  Returns
-// cudaGetLastError().
+// Shapes, scenario-first and contiguous on the current device, as
+// RawResult holds them: A (S, nc, n1, m); c, w0 and w (S, nc, n1); b and y
+// (S, m); k0, bsc0, csc0 and the scalar outputs (S,); fail, mir, stall,
+// niter, aborted int32 (S,); stats_k, stats_d (S, T); scratch (S, stride)
+// on the global route, unused (may be null) on the shared route.
+// plan (host, 4 ints): TEAM (8 or 32; any other raises
+// cudaErrorInvalidValue unless built with CONEX_SOCP_ALL_TEAMS), scenarios
+// per block, shared route (1) or global (0), the per-scenario stride in
+// elements.  iparams (host, 9 ints):
+// T, final_centering_steps, initial centering steps, refinement steps,
+// warmstart, fixed_iterations, enable_rescaling, prepare_dual_variables,
+// mu_stall_iterations.  dparams (host, 8 doubles): kkt_error_tolerance,
+// inv_sqrt_mu_max, the k clamp floor, rank, divergence_upper_bound,
+// final_centering_tolerance, warmstart_abort_threshold, mu_stall_tolerance.
+// Returns the error of cudaFuncSetAttribute or cudaGetLastError().
+#if CONEX_SOCP_PART != 2
 int conex_socp_fused_f32(const float* A, const float* c, const float* b,
                          const float* w0, const float* k0, const float* bsc0,
                          const float* csc0, float* y, float* w, float* k,
@@ -632,13 +804,15 @@ int conex_socp_fused_f32(const float* A, const float* c, const float* b,
                          float* cx, int* fail, int* mir, int* stall,
                          int* niter, int* aborted, float* stats_k,
                          float* stats_d, float* scratch, int S, int nc,
-                         int n1, int m, const int* iparams,
+                         int n1, int m, const int* plan, const int* iparams,
                          const double* dparams, void* stream) {
   return run<float>(A, c, b, w0, k0, bsc0, csc0, y, w, k, kmax, bsc, csc, by,
                     cx, fail, mir, stall, niter, aborted, stats_k, stats_d,
-                    scratch, S, nc, n1, m, iparams, dparams, stream);
+                    scratch, S, nc, n1, m, plan, iparams, dparams, stream);
 }
+#endif
 
+#if CONEX_SOCP_PART != 1
 int conex_socp_fused_f64(const double* A, const double* c, const double* b,
                          const double* w0, const double* k0,
                          const double* bsc0, const double* csc0, double* y,
@@ -646,11 +820,13 @@ int conex_socp_fused_f64(const double* A, const double* c, const double* b,
                          double* csc, double* by, double* cx, int* fail,
                          int* mir, int* stall, int* niter, int* aborted,
                          double* stats_k, double* stats_d, double* scratch,
-                         int S, int nc, int n1, int m, const int* iparams,
-                         const double* dparams, void* stream) {
+                         int S, int nc, int n1, int m, const int* plan,
+                         const int* iparams, const double* dparams,
+                         void* stream) {
   return run<double>(A, c, b, w0, k0, bsc0, csc0, y, w, k, kmax, bsc, csc, by,
                      cx, fail, mir, stall, niter, aborted, stats_k, stats_d,
-                     scratch, S, nc, n1, m, iparams, dparams, stream);
+                     scratch, S, nc, n1, m, plan, iparams, dparams, stream);
 }
+#endif
 
 }  // extern "C"

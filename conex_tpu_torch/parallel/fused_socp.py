@@ -14,7 +14,9 @@ and the dual recovery.
 
 ``solve_socp_fused`` is the entry point.  A CUDA tensor goes to
 ``solve_socp_kernel``, the wrapper of the hand-written kernel in
-``csrc/fused_socp.cu`` (float32 or float64), or the call raises; a CPU
+``csrc/fused_socp.cu`` (float32 or float64), which runs under the plan
+``socp_plan`` makes from the shape (lanes per scenario, scenarios per
+block, shared memory or global scratch), or the call raises; a CPU
 tensor goes to ``solve_socp_plain``, the kernel's body written in plain
 PyTorch over a leading scenario axis.  ``solve_socp_kernel.launches``
 counts the kernel's launches.
@@ -30,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
 import torch
@@ -443,15 +446,144 @@ def solve_socp_plain(A, c, b, w0, k0, bsc0, csc0, config: SolverConfig) -> RawRe
 # ---------------------------------------------------------------------------
 
 
-def _scratch_per_scenario(nc: int, n1: int, m: int) -> int:
-    """Scratch elements one scenario needs; csrc/fused_socp.cu carves the
-    buffer in the same order (wsqrt, WA, WsqrtC, d, ms, G, L, 5 vectors)."""
+# The dynamic shared memory one block may ask for on an H100 (227 KB of an
+# SM's 228).
+SHARED_BUDGET = 232_448
+H100_SMS = 132
+MAX_THREADS = 256  # csrc/fused_socp.cu's kMaxThreads (its launch bounds)
+# Lanes per scenario the kernel's code takes (ALL_TEAMS) and the library
+# holds (TEAMS); tools/kernel_costs.py k2 builds the others beside it.
+ALL_TEAMS = (1, 2, 4, 8, 16, 32)
+TEAMS = (8, 32)
+# Lanes per scenario, by measurement on an H100 (tools/kernel_costs.py k2,
+# PERF.md): 32 while a batch leaves each SM at most SMALL_PER_SM scenarios
+# (the SMs are mostly idle and more lanes shorten the split stages), else 8
+# (four scenarios share a warp's serial chains).
+SMALL_PER_SM = 8
+
+
+def default_team(S: int) -> int:
+    return 32 if S <= SMALL_PER_SM * H100_SMS else 8
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def working_elems(nc: int, n1: int, m: int) -> int:
+    """Working elements of one scenario, in the kernel's carve order: w^1/2,
+    WA, WC, d (nc n1 (3 + m)), ms (n1), G and L (2 m^2), AW, AQc, rhs, x,
+    tmp (5 m)."""
     return nc * n1 * (3 + m) + n1 + 2 * m * m + 5 * m
 
 
-def solve_socp_kernel(A, c, b, w0, k0, bsc0, csc0, config: SolverConfig) -> RawResult:
-    """Launch the CUDA kernel on CUDA tensors (shapes as solve_socp_plain);
-    raises on what it does not take."""
+def shared_elems(nc: int, n1: int, m: int) -> int:
+    """One scenario's region of shared memory: A, c, b, w, y and the
+    working arrays, padded to an odd count so that the teams of a warp fall
+    on other banks."""
+    cn = nc * n1
+    return (cn * m + 2 * cn + 2 * m + working_elems(nc, n1, m)) | 1
+
+
+@dataclass(frozen=True)
+class SocpPlan:
+    """How one launch of K2 covers S scenarios: ``team`` lanes per
+    scenario, ``per_block`` scenarios per block (block b takes scenarios
+    [b per_block, (b+1) per_block)), and the route: every scenario's working
+    set in shared memory (``shared``), or in a global scratch buffer of
+    ``scratch_shape``.  ``stride`` is the elements of one scenario's region."""
+
+    S: int
+    nc: int
+    n1: int
+    m: int
+    itemsize: int
+    T: int
+    team: int
+    shared: bool
+    per_block: int
+    stride: int
+
+    @property
+    def route(self):
+        return "shared" if self.shared else "global"
+
+    @property
+    def blocks(self):
+        return _cdiv(self.S, self.per_block)
+
+    @property
+    def threads(self):
+        return self.per_block * self.team
+
+    @property
+    def shared_bytes(self):
+        """Dynamic shared memory of one block."""
+        return self.per_block * self.stride * self.itemsize if self.shared else 0
+
+    @property
+    def scratch_shape(self):
+        return (0,) if self.shared else (self.S, self.stride)
+
+    def scenarios(self, block):
+        lo = block * self.per_block
+        return range(lo, min(self.S, lo + self.per_block))
+
+    def traffic_bytes(self, iterations: int) -> int:
+        """Device-memory bytes of one solve whose scenarios take
+        ``iterations`` Newton iterations together: the inputs read once and
+        the outputs written once; on the global route also each working
+        element written and read once per iteration (a floor: the code
+        reads most of them more often)."""
+        S, cn, m, T, it = self.S, self.nc * self.n1, self.m, self.T, self.itemsize
+        io = it * S * (cn * m + 2 * cn + m + 3) + it * S * (m + cn + 6 + 2 * T) + 4 * 5 * S
+        if self.shared:
+            return io
+        return io + 2 * it * working_elems(self.nc, self.n1, m) * iterations
+
+    def as_ints(self):
+        """The kernel's plan array."""
+        return (self.team, self.per_block, int(self.shared), self.stride)
+
+    def describe(self):
+        return (f"route {self.route}, TEAM {self.team}, {self.per_block} scenarios "
+                f"per block ({self.blocks} blocks of {self.threads} threads), "
+                f"{self.shared_bytes} shared bytes per block")
+
+
+def socp_plan(S, nc, n1, m, itemsize, T, team=None, route=None):
+    """The plan of one launch.  The global route is taken exactly when one
+    scenario's region exceeds SHARED_BUDGET; ``route`` forces one
+    ("shared" raises where it does not fit).  ``team`` may be any of
+    ALL_TEAMS; the library launches only TEAMS.  Blocks hold
+    MAX_THREADS // team scenarios, fewer where shared memory or a small S
+    (spread over the SMs) asks for it."""
+    team = default_team(S) if team is None else team
+    if team not in ALL_TEAMS:
+        raise ValueError(f"team must be one of {ALL_TEAMS}, not {team}")
+    fits = shared_elems(nc, n1, m) * itemsize <= SHARED_BUDGET
+    if route is None:
+        route = "shared" if fits else "global"
+    if route not in ("shared", "global"):
+        raise ValueError(f"route must be 'shared' or 'global', not {route!r}")
+    shared = route == "shared"
+    if shared and not fits:
+        raise ValueError(f"one scenario of shape nc={nc}, n1={n1}, m={m} exceeds "
+                         f"{SHARED_BUDGET} bytes of shared memory")
+    stride = shared_elems(nc, n1, m) if shared else working_elems(nc, n1, m)
+    per_block = MAX_THREADS // team
+    if shared:
+        per_block = min(per_block, SHARED_BUDGET // (stride * itemsize))
+    per_block = max(1, min(per_block, _cdiv(S, H100_SMS)))
+    return SocpPlan(S=S, nc=nc, n1=n1, m=m, itemsize=itemsize, T=T, team=team,
+                    shared=shared, per_block=per_block, stride=stride)
+
+
+def solve_socp_kernel(A, c, b, w0, k0, bsc0, csc0, config: SolverConfig,
+                      plan: Optional[SocpPlan] = None) -> RawResult:
+    """Launch the CUDA kernel on CUDA tensors (shapes as solve_socp_plain)
+    under ``plan`` (``socp_plan``'s by default); raises on what it does not
+    take."""
     args = (A, c, b, w0, k0, bsc0, csc0)
     if not all(x.is_cuda for x in args):
         raise ValueError("solve_socp_kernel takes CUDA tensors")
@@ -472,7 +604,13 @@ def solve_socp_kernel(A, c, b, w0, k0, bsc0, csc0, config: SolverConfig) -> RawR
         raise ValueError(f"empty shape {tuple(A.shape)} or max_iterations < 1")
     if not all(x.is_contiguous() for x in args):
         raise ValueError("solve_socp_kernel takes contiguous tensors")
-    if S >= 2**31 or nc * n1 * m >= 2**31:
+    T = config.max_iterations
+    if plan is None:
+        plan = socp_plan(S, nc, n1, m, A.element_size(), T)
+    if (plan.S, plan.nc, plan.n1, plan.m, plan.itemsize, plan.T) != (
+            S, nc, n1, m, A.element_size(), T):
+        raise ValueError(f"plan for another call: {plan}")
+    if S * max(nc * n1 * m, plan.stride, T) >= 2**31:
         raise ValueError(f"shape {tuple(A.shape)} exceeds the kernel's int indices")
     _check_config(config)
 
@@ -480,18 +618,15 @@ def solve_socp_kernel(A, c, b, w0, k0, bsc0, csc0, config: SolverConfig) -> RawR
 
     lib = build().lib
     fn = lib.conex_socp_fused_f32 if A.dtype == torch.float32 else lib.conex_socp_fused_f64
-    T = config.max_iterations
     kw = dict(dtype=A.dtype, device=A.device)
-    # Scenario-last layout: neighbouring threads (scenarios) read
-    # neighbouring addresses.
-    A_t, c_t, b_t, w0_t = (x.movedim(0, -1).contiguous() for x in (A, c, b, w0))
-    y = torch.empty((m, S), **kw)
-    w = torch.empty((nc, n1, S), **kw)
+    y = torch.empty((S, m), **kw)
+    w = torch.empty((S, nc, n1), **kw)
     k, k_max, b_sc, c_sc, by, cx = (torch.empty((S,), **kw) for _ in range(6))
     ints = [torch.empty((S,), dtype=torch.int32, device=A.device) for _ in range(5)]
-    stats_k = torch.empty((T, S), **kw)
-    stats_d = torch.empty((T, S), **kw)
-    scratch = torch.empty((_scratch_per_scenario(nc, n1, m), S), **kw)
+    stats_k = torch.empty((S, T), **kw)
+    stats_d = torch.empty((S, T), **kw)
+    scratch = torch.empty(plan.scratch_shape, **kw)
+    plan_ints = (ctypes.c_int * 4)(*plan.as_ints())
     iparams = (ctypes.c_int * 9)(
         T, config.final_centering_steps, _init_centering(config),
         config.iterative_refinement_iterations,
@@ -504,19 +639,17 @@ def solve_socp_kernel(A, c, b, w0, k0, bsc0, csc0, config: SolverConfig) -> RawR
         2.0 * nc, config.divergence_upper_bound, config.final_centering_tolerance,
         config.warmstart_abort_threshold, config.mu_stall_tolerance,
     )
-    ptrs = [x.data_ptr() for x in (A_t, c_t, b_t, w0_t, k0, bsc0, csc0, y, w, k,
+    ptrs = [x.data_ptr() for x in (A, c, b, w0, k0, bsc0, csc0, y, w, k,
                                    k_max, b_sc, c_sc, by, cx, *ints, stats_k,
                                    stats_d, scratch)]
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
-        err = fn(*ptrs, S, nc, n1, m, ctypes.addressof(iparams),
-                 ctypes.addressof(dparams), stream)
+        err = fn(*ptrs, S, nc, n1, m, ctypes.addressof(plan_ints),
+                 ctypes.addressof(iparams), ctypes.addressof(dparams), stream)
     if err != 0:
-        raise RuntimeError(f"fused SOCP kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"fused SOCP kernel launch failed: cudaError {err} ({plan.describe()})")
     solve_socp_kernel.launches += 1
-    back = lambda x: x.movedim(-1, 0)  # noqa: E731
-    return RawResult(back(y), back(w), k, k_max, b_sc, c_sc, by, cx, *ints,
-                back(stats_k), back(stats_d))
+    return RawResult(y, w, k, k_max, b_sc, c_sc, by, cx, *ints, stats_k, stats_d)
 
 
 solve_socp_kernel.launches = 0
@@ -561,8 +694,8 @@ def solve_socp_fused(
         warmstart (previous ``b_scaling``; defaults to 1).
       init_c_scaling: optional (S,) likewise for ``c_scaling``.
       block_size, interpret: accepted for the JAX signature; they have no
-        effect here (the kernel takes one scenario per thread and has no
-        interpreter mode).
+        effect here (``socp_plan`` sizes the kernel's teams and blocks, and
+        the kernel has no interpreter mode).
     """
     del block_size, interpret
     _check_config(config)

@@ -193,15 +193,77 @@ def test_arrays_go_to_the_card(monkeypatch):
 F32_RTOL = 1e-6
 
 
+# (S, nc, n1, m): the bench shape, phase 3b's small batches, chip_smoke's
+# global-route batch (shared in f32, global in f64) and a large m.
+PLAN_SHAPES = {"bench": (100_000, 1, 21, 10), "bench_small": (1_000, 1, 21, 10),
+               "phase3b": (300, 3, 5, 3), "global_f64": (64, 4, 250, 16),
+               "large_m": (7, 1, 21, 200)}
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("shape", PLAN_SHAPES.values(), ids=PLAN_SHAPES.keys())
+def test_socp_plan_covers_fits_and_routes(shape, itemsize):
+    """socp_plan: every scenario in exactly one block, TEAM divides 32,
+    blocks within the launch bounds and the shared-memory budget, and the
+    global route taken exactly where one scenario's working set exceeds
+    the budget; the default TEAM is one the library holds."""
+    S, nc, n1, m = shape
+    T = 30
+    one = fused_socp.shared_elems(nc, n1, m) * itemsize
+    for team in (None,) + fused_socp.ALL_TEAMS:
+        plan = fused_socp.socp_plan(S, nc, n1, m, itemsize, T, team=team)
+        assert 32 % plan.team == 0
+        assert plan.team == (fused_socp.default_team(S) if team is None else team)
+        assert fused_socp.default_team(S) in fused_socp.TEAMS
+        ranges = [plan.scenarios(blk) for blk in range(plan.blocks)]
+        assert ranges[0].start == 0 and ranges[-1].stop == S
+        assert all(len(r) > 0 for r in ranges)
+        assert all(a.stop == b.start for a, b in zip(ranges, ranges[1:]))
+        assert 1 <= plan.per_block and plan.threads <= fused_socp.MAX_THREADS
+        assert plan.shared_bytes <= fused_socp.SHARED_BUDGET
+        assert (plan.route == "global") == (one > fused_socp.SHARED_BUDGET)
+        if plan.shared:
+            assert plan.stride % 2 == 1
+            assert plan.stride * itemsize * plan.per_block == plan.shared_bytes
+            assert plan.scratch_shape == (0,)
+        else:
+            assert plan.shared_bytes == 0
+            assert plan.scratch_shape == (S, fused_socp.working_elems(nc, n1, m))
+        assert plan.traffic_bytes(T * S) > 0
+    if one > fused_socp.SHARED_BUDGET:
+        with pytest.raises(ValueError, match="exceeds"):
+            fused_socp.socp_plan(S, nc, n1, m, itemsize, T, route="shared")
+    with pytest.raises(ValueError, match="team"):
+        fused_socp.socp_plan(S, nc, n1, m, itemsize, T, team=3)
+
+
+def test_bench_plan_keeps_the_solve_in_shared_memory():
+    """At the bench shape the plan's device-memory traffic is the inputs
+    read once and the outputs written once (f32, S = 100,000: under
+    0.2 GB), and the global route adds the working set per iteration."""
+    shared = fused_socp.socp_plan(100_000, 1, 21, 10, 4, 30)
+    glob = fused_socp.socp_plan(100_000, 1, 21, 10, 4, 30, route="global")
+    assert shared.route == "shared" and glob.route == "global"
+    assert shared.team == 8
+    assert fused_socp.socp_plan(1_000, 1, 21, 10, 4, 30).team == 32
+    io = 4 * 100_000 * (210 + 42 + 10 + 3) + 4 * 100_000 * (10 + 21 + 6 + 60) + 20 * 100_000
+    assert shared.traffic_bytes(3_000_000) == io < 0.2e9
+    assert glob.traffic_bytes(3_000_000) == io + 2 * 4 * fused_socp.working_elems(1, 21, 10) * 3_000_000
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("route,team", [("default", None), ("shared", 8), ("shared", 32),
+                                        ("global", 8), ("global", 32)])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_fused_kernel_matches_plain_on_card(dtype):
-    """The CUDA kernel against solve_socp_plain on the card, on the same
-    inputs in the same dtype (chip_smoke.py phase 3b's rules): iteration
-    counts and every status flag equal, and every floating field within
-    1e-8 relative in f64 and F32_RTOL in f32 (the two take every sum in the
-    same order and measure equal to the bit).  In f32 also against the f64
-    plain version: the first two iterations within 1e-3 at the median."""
+def test_fused_kernel_matches_plain_on_card(dtype, route, team):
+    """The CUDA kernel, through solve_socp_fused under its default plan
+    and on both routes under the library's two TEAM sizes, against
+    solve_socp_plain on the card, on the same inputs in the same dtype
+    (chip_smoke.py phase 3b's rules): iteration counts and every status
+    flag equal, and every floating field within 1e-8 relative in f64 and
+    F32_RTOL in f32 (the two take every sum in the same order and measure
+    equal to the bit).  In f32 also against the f64 plain version: the
+    first two iterations within 1e-3 at the median."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     A, c, b = random_socp(np.random.default_rng(5), S=300, nc=3, n=4, m=3)
@@ -219,7 +281,14 @@ def test_fused_kernel_matches_plain_on_card(dtype):
         return convert.to_numpy(fused_socp.epilogue(raw, cfg))
 
     before = fused_socp.solve_socp_kernel.launches
-    got = solve_socp_fused(*(x.to(dtype) for x in args64), cfg)
+    if route == "default":
+        got = solve_socp_fused(*(x.to(dtype) for x in args64), cfg)
+    else:
+        inputs = [x.to(dtype) for x in (*args64, *inits)]
+        plan = fused_socp.socp_plan(S, nc, n1, A.shape[3], inputs[0].element_size(),
+                                    cfg.max_iterations, team=team, route=route)
+        got = fused_socp.epilogue(fused_socp.solve_socp_kernel(*inputs, cfg, plan=plan),
+                                  cfg)
     torch.cuda.synchronize()
     assert fused_socp.solve_socp_kernel.launches == before + 1
     got, want = convert.to_numpy(got), plain(dtype)

@@ -1,13 +1,15 @@
 """What the port's kernel build costs, and where the paths' time goes.
 
-    python3 tools/kernel_costs.py [build] [fma] [profile] [probes] [sdp] [k1]
+    python3 tools/kernel_costs.py [build] [fma] [profile] [probes] [sdp] [k1] [k2]
 
-Needs one CUDA card and nvcc; imports nothing of JAX.  Six parts (all of
+Needs one CUDA card and nvcc; imports nothing of JAX.  Seven parts (all of
 them when none is named), each printing its own lines:
 
 1. build: the nvcc wall time of the library as ``conex_tpu_torch._build``
-   builds it (one nvcc per source, in parallel, then a link), beside one
-   nvcc call that compiles the sources in turn;
+   builds it (one nvcc per compilation unit, in parallel, then a link),
+   each unit's own time in that parallel run, csrc/fused_socp.cu compiled
+   as one unit (both working types) alone, and one nvcc call that compiles
+   the sources in turn;
 2. FMA: the library built twice more, with the product build's flags
    (``-fmad=false``) and with FMA contraction (nvcc's default); CUDA-event times
    of the Schur kernel (K1) at bench.py's shape and of the fused SOCP
@@ -15,10 +17,11 @@ them when none is named), each printing its own lines:
    turns (fma, nofma, nofma, fma), and how far the two builds' f32 results
    lie apart;
 3. profile: torch.profiler over one solve of bench_socp's workload through
-   solve_socp_fused at S = 1,000 and 100,000 and through solve_scenarios
-   with SOCCone at S = 10,000: the unprofiled wall (best of 3), the
-   device-kernel time, its share of that wall, the kernel launches, and the
-   largest kernels;
+   solve_socp_fused at S = 1,000, 10,000 and 100,000 (one K2 launch and the
+   epilogue's elementwise launches; the inputs go to K2 in the caller's
+   layout, with no permute copies) and through solve_scenarios with SOCCone
+   at S = 10,000: the unprofiled wall (best of 3), the device-kernel time,
+   its share of that wall, the kernel launches, and the largest kernels;
 4. probes: the same profile of one call of each Schur probe kernel
    (K3-K6), of its plain version and of K1 as one program (S = 1, Bc =
    256), on the probes' inputs at B = 256, m = 50, n = 100, f32: where
@@ -35,9 +38,18 @@ them when none is named), each printing its own lines:
    plan, launch by launch; then, at the main path's shape, variants of
    csrc/schur.cu built beside the product (one TF32 pass instead of three,
    and no products at all), each profiled launch by launch with its error
-   against the f64 oracle: what the products cost over the copies.
+   against the f64 oracle: what the products cost over the copies;
+7. k2: the fused SOCP kernel (K2) on bench_socp's workload at S = 1,000,
+   10,000 and 100,000, f32, under every TEAM on both routes (a build with
+   every TEAM, ALL_TEAMS_BUILD, beside the product, which holds TEAM 8 and
+   32): CUDA-event times in turns, the plan's pick
+   (parallel/fused_socp.py::socp_plan), and one profiled call of the pick,
+   launch by launch; then the pick under variants of
+   csrc/fused_socp.cu built beside the product (K2_VARIANTS: a stage's
+   chains cut out, the sums not unrolled or in chunks of 8, the stage
+   functions out of line), in turns: where the time goes.
 
-A run of all four parts holds the card for several minutes (part 2 builds
+A run of all the parts holds the card for several minutes (part 2 builds
 the library twice); naming parts runs only those, so a question about one
 of them costs the card time of that part alone (``probes`` alone: about
 30 s).  Run from the repository root.  The extra libraries go to
@@ -64,17 +76,17 @@ def log(msg):
 
 
 def compile_library(name, flags):
-    """The sources compiled with ``flags``, one nvcc each in parallel, and
-    linked into BUILD_DIR/<name>.so; a loaded Build."""
+    """The compilation units built with ``flags``, one nvcc each in
+    parallel, and linked into BUILD_DIR/<name>.so; a loaded Build."""
     from conex_tpu_torch import _build
 
     nvcc = _build._nvcc()
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = _build.BUILD_DIR / f"{name}.so"
-    objs = [_build.BUILD_DIR / f"{name}.{src.stem}.o" for src in _build.SOURCES]
+    objs = [_build.BUILD_DIR / f"{name}.{unit}.o" for _, _, unit in _build.UNITS]
     t0 = time.perf_counter()
-    text = _build._run_all([[nvcc, *flags, "-c", "-o",
-                             str(obj), str(src)] for src, obj in zip(_build.SOURCES, objs)])
+    text = _build._run_all([[nvcc, *flags, *unit_flags, "-c", "-o", str(obj), str(src)]
+                            for (src, unit_flags, _), obj in zip(_build.UNITS, objs)])
     text += _build._run_all([[nvcc, "-shared", "-o", str(out), *map(str, objs)]])
     seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(out))
@@ -82,12 +94,36 @@ def compile_library(name, flags):
     return _build.Build(lib=lib, path=out, seconds=seconds, log=text)
 
 
+def timed_compiles(cmds):
+    """Run the commands in parallel; the seconds each took to finish."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(cmd, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+             for cmd in cmds]
+    seconds = [None] * len(procs)
+    while None in seconds:
+        for i, proc in enumerate(procs):
+            if seconds[i] is None and proc.poll() is not None:
+                if proc.returncode:
+                    raise RuntimeError(f"failed ({proc.returncode}): {' '.join(cmds[i])}")
+                seconds[i] = time.perf_counter() - t0
+        time.sleep(0.05)
+    return seconds
+
+
 def part_build():
     from conex_tpu_torch import _build
 
     built = _build.build(force=True)
-    log(f"[build] product build (one nvcc per source in parallel, then a "
-        f"link): {built.seconds:.2f} s")
+    log(f"[build] product build (one nvcc per compilation unit in parallel, "
+        f"then a link): {built.seconds:.2f} s")
+    nvcc, obj = _build._nvcc(), str(_build.BUILD_DIR / "unit_timing.o")
+    units = [[nvcc, *_build.NVCC_FLAGS, *flags, "-c", "-o", f"{obj}.{tag}", str(src)]
+             for src, flags, tag in _build.UNITS]
+    for (_, _, tag), s in zip(_build.UNITS, timed_compiles(units)):
+        log(f"[build] unit {tag}: {s:.2f} s (all units in parallel)")
+    (s,) = timed_compiles([[nvcc, *_build.NVCC_FLAGS, "-c", "-o", obj,
+                            str(_build.SOURCES[1])]])
+    log(f"[build] csrc/fused_socp.cu as one unit, both types, alone: {s:.2f} s")
     out = _build.BUILD_DIR / "single_call.so"
     t0 = time.perf_counter()
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(out),
@@ -199,7 +235,7 @@ def part_profile(device):
     from conex_tpu_torch.parallel.fused_socp import solve_socp_fused
 
     config = chip_smoke.socp_config()
-    for S in (1_000, 100_000):
+    for S in SIZES:
         A, c, b = (torch.from_numpy(x).to(device) for x in chip_smoke.socp_workload(S))
         profile(f"solve_socp_fused S={S}", lambda: solve_socp_fused(A, c, b, config))
     S = 10_000
@@ -328,9 +364,134 @@ def part_k1(device):
         _build._loaded = product
 
 
+# Edits of csrc/fused_socp.cu for part k2's variants.  The first two cut
+# a stage's chains out (timing only: their results are wrong, but every
+# scenario still runs its 30 iterations); the others change only the form
+# of the code and give the product's bits.
+_SUM_CHUNKS = ("""#pragma unroll 4
+  for (int i = lo; i < hi; ++i) s = s + term(i);""", """  int i = lo;
+  for (; i + 8 <= hi; i += 8) {
+    T t[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) t[k] = term(i + k);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) s = s + t[k];
+  }
+  for (; i < hi; ++i) s = s + term(i);""")
+K2_VARIANTS = {
+    "no substitutions": (("  __device__ void chol_solve(T* v) const {\n    if (lane == 0) {",
+                          "  __device__ void chol_solve(T* v) const {\n    if (lane == 0 && v[0] == T(12345)) {"),),
+    "no Cholesky sums": (
+        ("const T acc = sum_terms(T(0), 0, j, [=](int t) { return lj[t] * lj[t]; });",
+         "const T acc = T(0);"),
+        ("const T s = sum_terms(T(0), 0, j, [=](int t) { return li[t] * lj[t]; });",
+         "const T s = T(0);")),
+    "sums not unrolled": (("#pragma unroll 4\n  for (int i = lo; i < hi; ++i) s = s + term(i);",
+                           "  for (int i = lo; i < hi; ++i) s = s + term(i);"),
+                          ("#pragma unroll 4\n  for (int i = lo; i < hi; ++i) s = s - term(i);",
+                           "  for (int i = lo; i < hi; ++i) s = s - term(i);")),
+    "sums in chunks of 8": (_SUM_CHUNKS,),
+    "stage functions out of line": tuple(
+        (f"  __device__ {f}", f"  __device__ __noinline__ {f}")
+        for f in ("void spectral(", "void qrep(", "void assemble(", "bool cholesky(",
+                  "void chol_solve(", "void solve_kkt(", "void minus_slack(")) + (
+        ("__device__ T mu_from_divergence(", "__device__ __noinline__ T mu_from_divergence("),),
+}
+
+
+# The build of csrc/fused_socp.cu, as it stands, with every TEAM of
+# fused_socp.ALL_TEAMS (the product holds TEAM 8 and 32 only).
+ALL_TEAMS_BUILD = "every TEAM"
+
+
+def k2_variants():
+    """csrc/fused_socp.cu built beside the product, float32 only, in
+    parallel into BUILD_DIR: under each of K2_VARIANTS, and as
+    ALL_TEAMS_BUILD; {name: Build}."""
+    from conex_tpu_torch import _build
+
+    base = _build.SOURCES[1].read_text()
+    jobs = {name: (edits, ()) for name, edits in K2_VARIANTS.items()}
+    jobs[ALL_TEAMS_BUILD] = ((), ("-DCONEX_SOCP_ALL_TEAMS",))
+    cmds, outs = [], {}
+    for name, (edits, defines) in jobs.items():
+        text = base
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"variant {name!r}: csrc/fused_socp.cu lacks {old!r}")
+            text = text.replace(old, new)
+        stem = "k2_variant_" + name.replace(" ", "_")
+        src, out = _build.BUILD_DIR / f"{stem}.cu", _build.BUILD_DIR / f"{stem}.so"
+        src.write_text(text)
+        cmds.append([_build._nvcc(), *_build.NVCC_FLAGS, "-DCONEX_SOCP_PART=1", *defines,
+                     "-shared", "-o", str(out), str(src)])
+        outs[name] = out
+    t0 = time.perf_counter()
+    _build._run_all(cmds)
+    log(f"[k2] {len(cmds)} builds beside the product, in parallel: "
+        f"{time.perf_counter() - t0:.1f} s")
+    builds = {}
+    for name, out in outs.items():
+        lib = ctypes.CDLL(str(out))
+        lib.conex_socp_fused_f32.argtypes = _build._SOCP_ARGTYPES
+        lib.conex_socp_fused_f32.restype = ctypes.c_int
+        builds[name] = _build.Build(lib=lib, path=out, seconds=0.0, log="")
+    return builds
+
+
+def part_k2(device):
+    import torch
+
+    from conex_tpu_torch import _build
+    from conex_tpu_torch.parallel import fused_socp
+
+    config = chip_smoke.socp_config()
+    product = _build.build()
+    builds = k2_variants()
+    all_teams = builds.pop(ALL_TEAMS_BUILD)
+    variants = {"product": product, **builds}
+    for S in SIZES:
+        args = chip_smoke.fused_inputs(*chip_smoke.socp_workload(S), torch.float32,
+                                       device)
+        pick = chip_smoke.fused_plan(args, config)
+        plans = {f"TEAM {t} {r}": chip_smoke.fused_plan(args, config, team=t, route=r)
+                 for t in fused_socp.ALL_TEAMS for r in ("shared", "global")}
+        ms = {name: [] for name in plans}
+        try:
+            _build._loaded = all_teams
+            for name in list(plans) + list(plans)[::-1]:
+                plan = plans[name]
+                ms[name].append(chip_smoke.time_ms(
+                    lambda: fused_socp.solve_socp_kernel(*args, config, plan=plan), 3))
+        finally:
+            _build._loaded = product
+        for name, plan in plans.items():
+            log(f"[k2] S={S} f32 {name}: ms per call {ms[name]} (CUDA events, 3 "
+                f"calls each, in turns); {plan.describe()}")
+        log(f"[k2] S={S}: the plan's pick: {pick.describe()}")
+        profile(f"K2 S={S} f32, the plan's pick",
+                lambda: fused_socp.solve_socp_kernel(*args, config, plan=pick))
+        ms = {name: [] for name in variants}
+        want = fused_socp.solve_socp_kernel(*args, config, plan=pick)
+        try:
+            for name in list(variants) + list(variants)[::-1]:
+                _build._loaded = variants[name]
+                got = fused_socp.solve_socp_kernel(*args, config, plan=pick)
+                same = all(torch.equal(g, w) for g, w in zip(got, want))
+                ms[name].append(chip_smoke.time_ms(
+                    lambda: fused_socp.solve_socp_kernel(*args, config, plan=pick), 3))
+                ms[name].append("same bits" if same else "other bits")
+        finally:
+            _build._loaded = product
+        for name, v in ms.items():
+            log(f"[k2] S={S} f32, the plan's pick, {name}: ms per call {v[0::2]} "
+                f"(CUDA events, 3 calls each, in turns); results: {v[1]}")
+        del args, want
+
+
 PARTS = {"build": lambda device: part_build(), "fma": part_fma,
          "profile": part_profile, "probes": part_probes, "sdp": part_sdp,
-         "k1": part_k1}
+         "k1": part_k1, "k2": part_k2}
 
 
 def main(argv=None):
