@@ -41,7 +41,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    Frobenius error <= 1e-12) at two small shapes (one with two tiles of
    the Gram matrix) and at the probe shape
    (B=256, m=50, n=100), in f32 against the f64 plain version (<= 1e-4) at
-   the probe shape; K1 on the same inputs as one program of 256 cones
+   the probe shape, where two f32 calls of each must give the same bits;
+   on nonsymmetric inputs (uniform A, W, C) at (3, 5, 13) and (2, 70, 130)
+   in f64 (<= 1e-12), with each variant's distance from einsum_schur
+   beside it (K4 and K5 compute tr(A_v W A_u^T W^T), which leaves the
+   oracle there); K4 and K5 print their plan (dev_pallas_probe.py::
+   probe_at_plan); K1 on the same inputs as one program of 256 cones
    (S=1, Bc=256) against the same f64 oracle, with the same limits, and
    two of its f32 calls must give the same bits;
    CUDA-event times at the probe shape in f32 of each kernel and its plain
@@ -66,15 +71,16 @@ Phases, each printing its own lines; any failure exits non-zero:
 6. the probe entry points: benchmarks/dev_pallas_probe.py's main at
    256,50,100 and dev_tpu_probe2.py's part2 through their twins in
    conex_tpu_torch/benchmarks, on the card in f32: each variant's kernel
-   must launch.
+   must launch; then one K4 call must hold no more device memory than its
+   plan's scratch (no At copy of A).
 
-The last lines are the kernels' JSON record (K2's with the plan of its
-timed call; with each kernel's bound:
+The last lines are the kernels' JSON record (K2's, K4's and K5's with
+their plans; with each kernel's bound:
 the larger of its operations over the peak rate of the units that do
-them and its bytes over 3.35 TB/s; K1's products run on the tensor cores,
-three TF32 passes per f32 product at 495 TFLOP/s, the other kernels' on
-CUDA cores at 67 TFLOP/s of float32), the card's name and power limit,
-and {"ok": true, "device": {...}}.  Imports nothing of JAX.
+them and its bytes over 3.35 TB/s; K1's, K4's and K5's products run on
+the tensor cores, three TF32 passes per f32 product at 495 TFLOP/s, K3's
+and K6's on CUDA cores at 67 TFLOP/s of float32), the card's name and
+power limit, and {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 import json
@@ -93,6 +99,7 @@ PROBES = (("fused_a", "dev_pallas_probe", "benchmarks/dev_pallas_probe.py:37"),
           ("fused_b2", "dev_tpu_probe2", "benchmarks/dev_tpu_probe2.py:104"),
           ("fused_a2", "dev_tpu_probe2", "benchmarks/dev_tpu_probe2.py:180"))
 PROBE_SHAPE = (256, 50, 100)  # B, m, n: dev_pallas_probe.py:208
+AT_LAYOUT = ("fused_b", "fused_b2")  # K4 and K5: tr(A_v W A_u^T W^T)
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # float32 outside the tensor cores, TF32 and float64 on the tensor cores,
 # and device memory.
@@ -128,16 +135,24 @@ def bound(ops, nbytes, flops=F32_FLOPS):
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
-def schur_bound(cones, programs, m, n, itemsize=4, tensor_cores=False):
-    """K1, K3-K6: per cone the m+1 panels Op_v W (C W as operator m),
+def schur_bound(cones, programs, m, n, itemsize=4, tensor_cores=False,
+                at_layout=False):
+    """K1, K3, K6: per cone the m+1 panels Op_v W (C W as operator m),
     2 (m+1) n^3, and one triangle of the extended Gram matrix over them,
     2 (m+1)(m+2)/2 n^2 (it is symmetric for any inputs: a trace is unchanged
-    by cycling its factors); A, W and C read once, G, AW, AQc, wc, cqc of
-    each program written once.  ``tensor_cores``: the products run there,
-    as in K1: three TF32 passes per f32 product at TF32's rate, or float64
-    at the DMMA rate; else on CUDA cores at float32's rate."""
-    ops = (2 * cones * (m + 1) * n**3
-           + 2 * cones * ((m + 1) * (m + 2) // 2) * n**2)
+    by cycling its factors).  ``at_layout``: K4 and K5's function, whose G,
+    tr(A_v W A_u^T W^T), is not symmetric unless W is: two n^3 products per
+    operator, 4 (m+1) n^3, and every one of the m^2 + 2m + 2 outputs as a
+    sum of depth n^2.  A, W and C read once, G, AW, AQc, wc, cqc of each
+    program written once.  ``tensor_cores``: the products run there, as in
+    K1, K4, K5: three TF32 passes per f32 product at TF32's rate, or
+    float64 at the DMMA rate; else on CUDA cores at float32's rate."""
+    if at_layout:
+        ops = (4 * cones * (m + 1) * n**3
+               + 2 * cones * (m * m + 2 * m + 2) * n**2)
+    else:
+        ops = (2 * cones * (m + 1) * n**3
+               + 2 * cones * ((m + 1) * (m + 2) // 2) * n**2)
     nbytes = itemsize * (cones * (m + 2) * n * n + programs * (m * m + 2 * m + 2))
     if not tensor_cores:
         return bound(ops, nbytes)
@@ -187,15 +202,16 @@ def card_name_and_power_limit():
 
 
 def rel_err(got, want):
-    """Largest relative Frobenius error over matching output tuples."""
+    """Largest relative Frobenius error over matching output tuples; NaN
+    where any output holds a NaN, so that no limit passes it."""
     import torch
 
-    worst = 0.0
+    errs = []
     for g, w in zip(got, want):
         w = w.double()
         den = max(float(torch.linalg.vector_norm(w)), 1e-300)
-        worst = max(worst, float(torch.linalg.vector_norm(g.double() - w)) / den)
-    return worst
+        errs.append(float(torch.linalg.vector_norm(g.double() - w)) / den)
+    return float("nan") if any(e != e for e in errs) else max(errs)  # NaN fails
 
 
 def schur_inputs(S, Bc, m, n, seed, device):
@@ -880,6 +896,16 @@ def phase_soc_known_answer(device):
 # ---------------------------------------------------------------------------
 
 
+def nonsymmetric_inputs(B, m, n, seed, device):
+    """A, W and C uniform on [-1, 1], float32, made on the card from a
+    seed: no symmetry anywhere."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.rand(*shape, generator=g, device=device) * 2 - 1
+                 for shape in ((B, m, n, n), (B, n, n), (B, n, n)))
+
+
 def probe_variants():
     """{variant: (its plain version, its kernel wrapper)} of PROBES."""
     import importlib
@@ -901,36 +927,69 @@ def phase_probe_kernels(device):
 
     variants = probe_variants()
     records = {name: {} for name in variants}
+    B, m, n = PROBE_SHAPE
+    for name in AT_LAYOUT:
+        plan = dev_pallas_probe.probe_at_plan(B, m, n, 4)
+        records[name]["plan"] = dict(route=plan.route, cones_per_chunk=plan.cones_per_chunk,
+                                     operators_per_block=plan.operators_per_block,
+                                     depth_chunks=plan.depth_chunks,
+                                     slabs_per_chunk=plan.slabs_per_chunk,
+                                     shared_bytes=plan.shared_bytes,
+                                     scratch_bytes=plan.scratch_bytes)
+        log(f"[3c probe kernels] {name} probe shape f32 plan: {plan.describe()}; "
+            f"design traffic, counted from the plan, "
+            f"{plan.traffic_bytes() / 1e9:.4f} GB, "
+            f"{1e3 * plan.traffic_bytes() / HBM_BYTES_PER_S:.4f} ms at 3.35 TB/s")
     # m + 1 = 71 at the second shape: two 64-row tiles of the Gram matrix.
+    # Nonsymmetric inputs tell K4/K5's function from the oracle's, and hold
+    # every f32 fragment path to a transposed read or store: with symmetric
+    # A, W and C, M_v, N and W are symmetric too.  The symmetric probe shape
+    # comes last: K1's check and the times below use its inputs.
     for label, shape in (("small", (3, 5, 13)), ("two tiles", (2, 70, 130)),
+                         ("nonsymmetric small", (3, 5, 13)),
+                         ("nonsymmetric two tiles", (2, 70, 130)),
+                         ("nonsymmetric probe", PROBE_SHAPE),
                          ("probe", PROBE_SHAPE)):
-        A, w, C = dev_pallas_probe.probe_inputs(*shape, device)
+        nonsymmetric = label.startswith("nonsymmetric")
+        if nonsymmetric:
+            A, w, C = nonsymmetric_inputs(*shape, seed=7, device=device)
+        else:
+            A, w, C = dev_pallas_probe.probe_inputs(*shape, device)
         A64, w64, C64 = (x.double() for x in (A, w, C))
+        oracle = dev_pallas_probe.einsum_schur(A64, w64, C64)
         for name, (plain, kernel) in variants.items():
             want64 = plain(A64, w64, C64)
             got64 = kernel(A64, w64, C64)
             torch.cuda.synchronize()
             e64 = rel_err(got64, want64)
-            msg = f"[3c probe kernels] {name} {label} B,m,n={shape}: f64 rel err {e64:.3e} (limit 1e-12)"
+            msg = (f"[3c probe kernels] {name} {label} B,m,n={shape}: f64 rel err {e64:.3e} "
+                   f"(limit 1e-12); G's distance from einsum_schur "
+                   f"{rel_err(got64[:1], oracle[:1]):.3e}")
             if not e64 <= 1e-12:
                 fail(f"{name}: f64 kernel disagrees with its plain version at {label}: {e64}")
-            if label == "probe":
+            if nonsymmetric or label == "probe":
                 got32, plain32 = kernel(A, w, C), plain(A, w, C)
+                again = kernel(A, w, C)
                 torch.cuda.synchronize()
                 e32 = rel_err(got32, want64)
+                same = all(torch.equal(g, a) for g, a in zip(got32, again))
                 max_abs = max(float((g - p).abs().max()) for g, p in zip(got32, plain32))
-                msg += (f"; f32 rel err vs f64 oracle {e32:.3e} (limit 1e-4; plain f32 "
+                msg += (f"; f32 rel err vs f64 plain {e32:.3e} (limit 1e-4; plain f32 "
                         f"{rel_err(plain32, want64):.3e}); f32 max |kernel - plain| "
-                        f"{max_abs:.3e}")
+                        f"{max_abs:.3e}; two f32 calls give the same bits: {same}")
                 if not e32 <= 1e-4:
-                    fail(f"{name}: f32 kernel disagrees with the f64 oracle: {e32}")
-                records[name]["max_abs_err"] = max_abs
+                    fail(f"{name}: f32 kernel disagrees with the f64 plain version "
+                         f"at {label}: {e32}")
+                if not same:
+                    fail(f"{name}: two f32 calls at {label} differ")
+                if label == "probe":
+                    records[name]["max_abs_err"] = max_abs
+                del got32, plain32, again
             log(msg)
+        del oracle
     del got64
 
     # K1 on the same inputs, as one program of B cones (S = 1, Bc = B).
-    B, m, n = PROBE_SHAPE
-
     def as_one_program(A, w, C):
         return A.view(1, B, m, n, n), w.view(1, B, n, n), C.view(1, B, n, n)
 
@@ -960,7 +1019,8 @@ def phase_probe_kernels(device):
         log(f"[3c probe kernels] {name} probe shape f32 ms per call: kernel "
             f"{ms['kernel']}, plain {ms['plain']} (CUDA events, 10 calls each)")
         records[name].update(ms=min(ms["kernel"]), plain_ms=min(ms["plain"]),
-                             **schur_bound(B, 1, m, n))
+                             **(schur_bound(B, 1, m, n, tensor_cores=True, at_layout=True)
+                                if name in AT_LAYOUT else schur_bound(B, 1, m, n)))
     ms = {"einsum_schur": [], "K1": []}
     fns = {"einsum_schur": lambda: dev_pallas_probe.einsum_schur(A, w, C),
            "K1": lambda: psd_schur.schur_kernel(*k1_args)}
@@ -993,6 +1053,24 @@ def phase_probe_entry_points():
         fail(f"a probe variant did not launch its kernel: {launches}")
     if any(kernel.launches for kernel in others):
         fail("the probes launched K1 or K2")
+
+    # K4 reads A in place: a call holds its plan's scratch and outputs, and
+    # no At copy of A.
+    import torch
+
+    A, w, C = dev_pallas_probe.probe_inputs(*PROBE_SHAPE, "cuda")
+    plan = dev_pallas_probe.probe_at_plan(*PROBE_SHAPE, A.element_size())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    dev_pallas_probe.fused_b_kernel(A, w, C)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - held
+    log(f"[6 probe entry points] one K4 call: peak device memory above what it "
+        f"was given {extra} bytes; its plan's scratch {plan.scratch_bytes} bytes; "
+        f"A {A.numel() * A.element_size()} bytes")
+    if extra > plan.scratch_bytes + (1 << 20):
+        fail("K4's call holds more than its plan's scratch: a copy of A?")
     return launches
 
 

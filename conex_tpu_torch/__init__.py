@@ -12,6 +12,7 @@ numpy, never jax.
 
 from .config import (
     COLDSTART,
+    DEFAULT_CONFIG,
     KKT_SOLVER_LDLT,
     KKT_SOLVER_LLT,
     KKT_SOLVER_QR,
@@ -23,6 +24,7 @@ from .program import Program, Result
 
 __all__ = [
     "COLDSTART",
+    "DEFAULT_CONFIG",
     "KKT_SOLVER_LDLT",
     "KKT_SOLVER_LLT",
     "KKT_SOLVER_QR",

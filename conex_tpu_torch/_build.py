@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` are compiled with nvcc, one process per compilation unit
-(``UNITS``: each source, and fused_socp.cu once per working type), all
-started together, and linked into one shared library with a plain C interface,
+``csrc/*.cu`` (two of them include ``csrc/mma.cuh``) are compiled with
+nvcc, one process per compilation unit (``UNITS``: each source, and
+fused_socp.cu once per working type), all started together, and linked
+into one shared library with a plain C interface,
 loaded with ctypes.  The build happens at first use, on the
 machine with the card, into ``conex_tpu_torch/_build/`` (listed in
 .gitignore); the library's file name carries a hash of the sources and
@@ -25,6 +26,8 @@ from typing import NamedTuple, Optional
 _PKG = Path(__file__).resolve().parent
 SOURCES = tuple(_PKG / "csrc" / name for name in
                 ("schur.cu", "fused_socp.cu", "schur_probes.cu"))
+# Included by schur.cu and schur_probes.cu.
+HEADERS = (_PKG / "csrc" / "mma.cuh",)
 # Compilation units: (source, extra flags, object tag).  fused_socp.cu is
 # compiled once per working type (its CONEX_SOCP_PART), so its float32 and
 # float64 instantiations build side by side.
@@ -55,11 +58,15 @@ _SCHUR_ARGTYPES = [_P] * 10 + [_I] * 7 + [_P]
 # conex_socp_fused_f{32,64}(23 device pointers, S, nc, n1, m, plan,
 # iparams, dparams, stream); plan, iparams and dparams are host arrays
 _SOCP_ARGTYPES = [_P] * 23 + [_I] * 4 + [_P] * 4
-# conex_probe_{a,b,b2,a2}_f{32,64}(A, W, C, X, Y, part, G, AW, AQc, wc, cqc,
-# B, m, n, stream)
+# conex_probe_{a,a2}_f{32,64}(A, W, C, X, Y, part, G, AW, AQc, wc, cqc, B,
+# m, n, stream): K3 and K6
 _PROBE_ARGTYPES = [_P] * 11 + [_I] * 3 + [_P]
-_PROBE_NAMES = tuple(f"conex_probe_{v}_{t}" for v in ("a", "b", "b2", "a2")
+_PROBE_NAMES = tuple(f"conex_probe_{v}_{t}" for v in ("a", "a2")
                      for t in ("f32", "f64"))
+# conex_probe_at_f{32,64}(A, W, C, Y, Tb, part, G, AW, AQc, wc, cqc, B, m,
+# n, Q, D, SC, route, opb, stream): K4 and K5
+_PROBE_AT_ARGTYPES = [_P] * 11 + [_I] * 8 + [_P]
+_PROBE_AT_NAMES = ("conex_probe_at_f32", "conex_probe_at_f64")
 
 
 class Build(NamedTuple):
@@ -90,7 +97,7 @@ def _nvcc() -> str:
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update(repr([(src.name, flags) for src, flags, _ in UNITS]).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
@@ -117,6 +124,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         (("conex_schur_f32", "conex_schur_f64"), _SCHUR_ARGTYPES),
         (("conex_socp_fused_f32", "conex_socp_fused_f64"), _SOCP_ARGTYPES),
         (_PROBE_NAMES, _PROBE_ARGTYPES),
+        (_PROBE_AT_NAMES, _PROBE_AT_ARGTYPES),
     ):
         for name in names:
             fn = getattr(lib, name)

@@ -3,10 +3,11 @@
 Twin of part 2 of ``benchmarks/dev_tpu_probe2.py``: ``fused_b2`` (K5) and
 ``fused_a2`` (K6) are the At-layout and A-layout formulations of
 ``dev_pallas_probe`` as the TPU kernels run them with m padded to 8 and n
-to 128.  Padding has no twin here: each kernel in ``csrc/schur_probes.cu``
-reads the unpadded operands, masks the ragged edges, and rounds only the
-live rows of its Gram tile up to a multiple of 8.  The plain versions are
-the formulations of K4 and K3, since zero padding changes no sum.
+to 128.  Padding has no twin here, since zero padding changes no sum: the
+plain versions are the formulations of K4 and K3; K5's kernel is K4's
+(``launch_at``, whose mma tiles round every edge), and K6's reads the
+unpadded operands and rounds only the live rows of its Gram tile up to a
+multiple of 8.
 
 Part 1 of the JAX probe (bf16 split ladders and optimization barriers) is
 a TPU precision workaround and is not ported (ROADMAP.md, "Not to port");
@@ -20,8 +21,8 @@ from __future__ import annotations
 import argparse
 
 from .dev_pallas_probe import (
-    at_layout, check, check_kernel_inputs, einsum_schur, fused_a_plain,
-    fused_b_plain, launch, probe_inputs, route, timed,
+    check, check_kernel_inputs, einsum_schur, fused_a_plain, fused_b_plain,
+    launch, launch_at, probe_inputs, route, timed,
 )
 
 
@@ -42,9 +43,10 @@ def fused_a2_plain(A, w, C):
 
 
 def fused_b2_kernel(A, w, C):
-    """K5 on the card (replaces dev_tpu_probe2.py::_kernel_b2)."""
+    """K5 on the card (replaces dev_tpu_probe2.py::_kernel_b2): K4's
+    kernels, since the padding changes no sum."""
     check_kernel_inputs(A, w, C)
-    out = launch("b2", at_layout(A), w, C, A.shape)
+    out = launch_at(A, w, C)
     fused_b2_kernel.launches += 1
     return out
 
@@ -55,7 +57,7 @@ fused_b2_kernel.launches = 0
 def fused_a2_kernel(A, w, C):
     """K6 on the card (replaces dev_tpu_probe2.py::_kernel_a2)."""
     check_kernel_inputs(A, w, C)
-    out = launch("a2", A, w, C, A.shape)
+    out = launch("a2", A, w, C)
     fused_a2_kernel.launches += 1
     return out
 

@@ -102,3 +102,5 @@ class SolverConfig:
     def replace(self, **kw) -> "SolverConfig":
         return dataclasses.replace(self, **kw)
 
+
+DEFAULT_CONFIG = SolverConfig()

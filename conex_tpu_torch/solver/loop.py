@@ -15,6 +15,7 @@ pass); under ``fixed_iterations`` it runs all passes without that sync.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple, Tuple
 
@@ -200,12 +201,19 @@ def _check_supported(blocks, eq_blocks, config: SolverConfig):
         raise not_ported("sparse variable subsets", "13")
 
 
+@contextlib.contextmanager
 def _no_tf32():
     # A float32 product on the card must be a true float32 product, as on
     # the CPU: TF32 keeps about three decimal digits, too few for the f32
-    # Schur complement to stay factorable.
+    # Schur complement to stay factorable.  The caller's two flags come
+    # back on exit, by an exception too: a solve changes no global state.
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
 # ---------------------------------------------------------------------------
@@ -218,8 +226,11 @@ def _solve_impl(blocks, eq_blocks, b, init_ws, init_scalars,
     """Solve S same-structure programs: b (S, m), block tensors and
     init_ws fields (S, ...), init_scalars k / b_scaling / c_scaling (S,)."""
     _check_supported(blocks, eq_blocks, config)
-    if b.is_cuda:
-        _no_tf32()
+    with _no_tf32() if b.is_cuda else contextlib.nullcontext():
+        return _solve_loop(blocks, b, init_ws, init_scalars, config)
+
+
+def _solve_loop(blocks, b, init_ws, init_scalars, config: SolverConfig):
     dtype = b.dtype
     device = b.device
     S, m = b.shape

@@ -33,3 +33,14 @@ def test_replace_returns_new_config():
     cfg = base.replace(max_iterations=7)
     assert cfg.max_iterations == 7
     assert base.max_iterations == 25
+
+
+def test_default_config_exported_and_equal_to_jax():
+    import conex_tpu
+    import conex_tpu_torch
+
+    assert "DEFAULT_CONFIG" in conex_tpu_torch.__all__
+    assert conex_tpu_torch.DEFAULT_CONFIG is tcfg.DEFAULT_CONFIG
+    for f in dataclasses.fields(jcfg.SolverConfig):
+        assert (getattr(conex_tpu_torch.DEFAULT_CONFIG, f.name)
+                == getattr(conex_tpu.DEFAULT_CONFIG, f.name)), f.name

@@ -18,12 +18,18 @@ files are not touched.  K4 is the exception: ``fused_b`` builds At
 gives NaN, so the test calls ``_kernel_b`` through a pallas_call of its own
 with the At operand and the specs of :155-179.
 
+Nonsymmetric inputs (uniform A, W and C) tell the two functions apart:
+K3/K6 compute the oracle's tr(A_v W A_u W), K4/K5 their TPU kernels'
+tr(A_v W A_u^T W^T), which the K4/K5 kernels regroup (held in f64 at
+1e-12 by a test-local einsum of that regrouping).
+
 The CUDA kernels are held against the plain versions by the ``gpu`` test
 below and by chip_smoke.py phase 3c on the card.
 """
 
 import functools
 import importlib.util
+import math
 import types
 from pathlib import Path
 
@@ -70,6 +76,20 @@ def _inputs(shape, dtype):
     """The probes' inputs (dev_pallas_probe.py:211-217) as numpy."""
     B, m, n = shape
     return tuple(x.numpy().astype(dtype) for x in tp1.probe_inputs(B, m, n, "cpu"))
+
+
+def _nonsymmetric(shape, dtype, seed=7):
+    """A, W and C uniform on [-1, 1]: no symmetry anywhere."""
+    B, m, n = shape
+    rng = np.random.default_rng(seed)
+    return tuple(rng.uniform(-1, 1, s).astype(dtype)
+                 for s in ((B, m, n, n), (B, n, n), (B, n, n)))
+
+
+def _rel(got, want):
+    """Relative Frobenius error, as chip_smoke.py measures it."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
 
 
 @pytest.fixture
@@ -199,16 +219,176 @@ def test_probe2_part2_runs_on_cpu_and_part1_raises(capsys):
             call()
 
 
-@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("variant", VARIANTS)
-def test_kernel_matches_plain_on_card(variant):
+def test_plain_matches_pallas_kernel_interpret_nonsymmetric_f32(variant, shape,
+                                                                interpret):
+    A, w, C = _nonsymmetric(shape, np.float32)
+    want = _pallas(variant)(jnp.asarray(A), jnp.asarray(w), jnp.asarray(C))
+    got = _port(variant)[1](*map(convert.tensor, (A, w, C)))
+    for g, r in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == r.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=2e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_nonsymmetric_inputs_separate_the_two_functions(variant):
+    """K3/K6 keep the oracle's function for any input; K4/K5's G is
+    tr(A_v W A_u^T W^T) and leaves it where A and W are not symmetric,
+    while their AW, AQc, wc and cqc stay the oracle's (f64)."""
+    A, w, C = _nonsymmetric((3, 5, 13), np.float64)
+    want = jp1.einsum_schur(jnp.asarray(A), jnp.asarray(w), jnp.asarray(C))
+    got = _port(variant)[1](*map(convert.tensor, (A, w, C)))
+    start = 1 if variant.startswith("b") else 0
+    for g, r in zip(got[start:], want[start:]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-12, atol=1e-12)
+    if start:
+        assert _rel(got[0].numpy(), want[0]) > 0.1
+
+
+def _regrouped(A, w, C):
+    """K4's function as its kernels regroup it (csrc/schur_probes.cu)."""
+    wt = np.swapaxes(w, 1, 2)
+    M = wt[:, None] @ A @ w[:, None]  # W^T A_v W
+    N = np.swapaxes(w @ C @ w, 1, 2)  # (W C W)^T
+    return (np.einsum("bvij,buij->vu", M, A), np.einsum("bvij,bji->v", A, w),
+            np.einsum("bvij,bij->v", A, N), np.einsum("bij,bji->", C, w),
+            np.einsum("bij,bij->", C, N))
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 13), (2, 70, 130)])
+@pytest.mark.parametrize("variant", ["b", "b2"])
+def test_regrouped_products_equal_the_at_layout_function(variant, shape):
+    A, w, C = _nonsymmetric(shape, np.float64)
+    got = _port(variant)[1](*map(convert.tensor, (A, w, C)))
+    for g, r in zip(got, _regrouped(A, w, C)):
+        assert _rel(g.numpy(), r) <= 1e-12
+
+
+PLAN_SHAPES = [(256, 50, 100), (2, 70, 130), (3, 5, 13)]
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_at_plan_covers_every_cone_and_the_whole_depth_once(shape, itemsize):
+    B, m, n = shape
+    plan = tp1.probe_at_plan(B, m, n, itemsize)
+    plan.check()
+    # The shared route holds W split and two n x n buffers: f32 to n = 112,
+    # f64 to n = 96.
+    assert plan.route == ("shared" if n <= (112 if itemsize == 4 else 96)
+                          else "device")
+    assert plan.shared_bytes <= tp1.SHARED_BYTES
+    blocks = plan.gram_blocks()
+    assert len(blocks) == len(set(blocks))
+    assert set(blocks) == {(b, d, t) for b in range(B)
+                           for d in range(plan.depth_chunks)
+                           for t in range(plan.tiles)}
+    # The depth chunks tile [0, n^2) in order, none empty.
+    ranges = [plan.depth_range(d) for d in range(plan.depth_chunks)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == n * n
+    assert all(lo < hi for lo, hi in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    # The chunks of cones cover the batch, each under the scratch cap.
+    assert sum(plan.chunk_cones(c)[1] for c in range(plan.chunks)) == B
+    chunk = math.prod(plan.scratch_shape) + (math.prod(plan.t_shape) if plan.t_shape else 0)
+    assert chunk * itemsize <= tp1.SCRATCH_BYTES
+    assert plan.partial_shape == (B * plan.depth_chunks, (m + 2) * (m + 1))
+    assert plan.launches == plan.chunks * (2 if plan.route == "shared" else 3) + 1
+
+
+@pytest.mark.parametrize("itemsize, largest", [(4, 112), (8, 96)])
+def test_at_plan_shared_route_ends_where_the_buffers_outgrow_a_block(itemsize,
+                                                                     largest):
+    assert tp1.at_shared_bytes(largest, itemsize) <= tp1.SHARED_BYTES
+    assert tp1.at_shared_bytes(largest + 1, itemsize) > tp1.SHARED_BYTES
+    assert tp1.probe_at_plan(2, 3, largest, itemsize).route == "shared"
+    assert tp1.probe_at_plan(2, 3, largest + 1, itemsize).route == "device"
+
+
+def test_at_plan_at_the_probe_shape():
+    plan = tp1.probe_at_plan(256, 50, 100, 4)
+    assert (plan.route, plan.cones_per_chunk, plan.depth_chunks) == ("shared", 256, 2)
+    assert plan.launches == 3
+    assert 2.0e9 < plan.traffic_bytes() < 2.2e9  # A twice, Y written and read
+    f64 = tp1.probe_at_plan(256, 50, 100, 8)
+    assert f64.route == "device" and f64.chunks == 2  # Y and T: 2.11 GB
+    forced = tp1.probe_at_plan(256, 50, 100, 4, route="device")
+    assert forced.chunks == 1 and forced.launches == 4  # Y and T: 1.05 GB
+    with pytest.raises(ValueError, match="shared route does not hold n = 130"):
+        tp1.probe_at_plan(2, 70, 130, 4, route="shared")
+    with pytest.raises(ValueError, match="unknown route"):
+        tp1.probe_at_plan(2, 5, 13, 4, route="global")
+
+
+@pytest.mark.parametrize("shape, route", [((3, 5, 13), "shared"),
+                                          ((3, 5, 13), "device"),
+                                          ((2, 70, 130), "device")])
+def test_at_plan_emulated_gives_the_at_layout_function(shape, route):
+    """The kernels' data flow in plain numpy under the plan: Y's rows per
+    cone, E's partials per (cone, depth chunk) summed in row order, and the
+    reduce's map from E to the five outputs (f64, against fused_b_plain)."""
+    A, w, C = _nonsymmetric(shape, np.float64)
+    B, m, n = shape
+    plan = tp1.probe_at_plan(B, m, n, 8, route=route)
+    wt = np.swapaxes(w, 1, 2)
+    Y = np.concatenate([wt[:, None] @ A @ w[:, None], wt[:, None],
+                        np.swapaxes(w @ C @ w, 1, 2)[:, None]], 1)
+    X = np.concatenate([A, C[:, None]], 1)
+    Y, X = Y.reshape(B, m + 2, n * n), X.reshape(B, m + 1, n * n)
+    part = np.zeros(plan.partial_shape)
+    for b, d, _ in plan.gram_blocks():
+        lo, hi = plan.depth_range(d)
+        part[b * plan.depth_chunks + d] = (Y[b, :, lo:hi] @ X[b, :, lo:hi].T).ravel()
+    E = part.sum(0).reshape(m + 2, m + 1)
+    got = (E[:m, :m], E[m, :m], E[m + 1, :m], E[m, m], E[m + 1, m])
+    want = tp1.fused_b_plain(*map(convert.tensor, (A, w, C)))
+    for g, r in zip(got, want):
+        assert _rel(g, r.numpy()) <= 1e-12
+
+
+def _chip_smoke():
+    import sys
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    return chip_smoke
+
+
+def test_chip_smoke_rel_err_fails_on_nan():
+    """A NaN output gives a NaN error, which no limit passes (max(0, nan)
+    would give 0)."""
+    rel_err = _chip_smoke().rel_err
+    want = (torch.ones(3), torch.full((2,), 2.0))
+    assert rel_err(want, want) == 0.0
+    assert abs(rel_err((torch.ones(3) * 1.5, want[1]), want) - 0.5) < 1e-15
+    err = rel_err((torch.tensor([1.0, float("nan"), 1.0]), want[1]), want)
+    assert err != err and not err <= 1e-12
+
+
+def test_schur_bound_counts_the_at_layout_function():
+    chip_smoke = _chip_smoke()
+    B, m, n = chip_smoke.PROBE_SHAPE
+    at = chip_smoke.schur_bound(B, 1, m, n, tensor_cores=True, at_layout=True)
+    assert at["bound_by"] == "operations"
+    assert abs(at["bound_ms"] - 0.397) < 0.001  # 65.5 GFLOP, 3 TF32 passes
+    k1 = chip_smoke.schur_bound(B, 1, m, n, tensor_cores=True)
+    assert abs(k1["bound_ms"] - 0.199) < 0.001
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inputs", ["probe", "nonsymmetric"])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_kernel_matches_plain_on_card(variant, inputs):
     """Each CUDA kernel against its plain version on the card (relative
     Frobenius error: f64 <= 1e-12; f32 against the f64 plain version <= 1e-4,
-    as chip_smoke.py phase 3c)."""
+    as chip_smoke.py phase 3c), on the probes' inputs and on nonsymmetric
+    ones."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     fused, plain, kernel = _port(variant)
-    A, w, C = (convert.tensor(x, "cuda") for x in _inputs((3, 5, 13), np.float64))
+    make = _inputs if inputs == "probe" else _nonsymmetric
+    A, w, C = (convert.tensor(x, "cuda") for x in make((3, 5, 13), np.float64))
     want = plain(A, w, C)
     for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-4)):
         before = kernel.launches

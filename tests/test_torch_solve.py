@@ -275,6 +275,37 @@ def test_unsupported_options_raise_naming_roadmap_items():
     assert res.y.shape == (1, 2)
 
 
+def test_solve_scenarios_takes_the_jax_axis_keyword():
+    A, C, b = _batch(5, 2, 1, 3, 2)
+    args = ((convert.lmi_cone(A, C),), (), convert.tensor(b),
+            (tstate(convert.tensor(_identity_ws(2, 1, 3))),),
+            convert.scalars(_cold_scalars(2)))
+    cfg = ct.SolverConfig(max_iterations=5)
+    plain = convert.to_numpy(ct.solve_scenarios(*args, cfg))
+    named = convert.to_numpy(ct.solve_scenarios(*args, cfg, axis="dp"))
+    np.testing.assert_array_equal(named.y, plain.y)
+    np.testing.assert_array_equal(named.stats_k, plain.stats_k)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        ct.solve_scenarios(*args, cfg, mesh=object(), axis="dp")
+
+
+@pytest.mark.parametrize("exit_by", ["return", "exception"])
+def test_no_tf32_restores_the_callers_flags(monkeypatch, exit_by):
+    """A CUDA solve turns TF32 off inside and gives both flags back."""
+    backends = torch.backends
+    for flag in (backends.cuda.matmul, backends.cudnn):
+        monkeypatch.setattr(flag, "allow_tf32", True)
+    try:
+        with tloop._no_tf32():
+            assert not backends.cuda.matmul.allow_tf32
+            assert not backends.cudnn.allow_tf32
+            if exit_by == "exception":
+                raise KeyError("inside the solve")
+    except KeyError:
+        assert exit_by == "exception"
+    assert backends.cuda.matmul.allow_tf32 and backends.cudnn.allow_tf32
+
+
 def _imports(path):
     tree = ast.parse(Path(path).read_text())
     for node in ast.walk(tree):

@@ -25,7 +25,12 @@ them when none is named), each printing its own lines:
 4. probes: the same profile of one call of each Schur probe kernel
    (K3-K6), of its plain version and of K1 as one program (S = 1, Bc =
    256), on the probes' inputs at B = 256, m = 50, n = 100, f32: where
-   each call's time goes, launch by launch;
+   each call's time goes, launch by launch (K4 and K5: sandwich, Gram,
+   reduce); then K4 on its two routes in turns, T kept in shared memory
+   against T written to device memory (profiled too), and K4 under
+   variants of csrc/schur_probes.cu built beside the product (one TF32
+   pass, no products, two other warp units of the sandwich), each
+   profiled with its error;
 5. sdp: the same profile of one solve of the SDP main path (bench.py's
    workload, chip_smoke.bench_workload: 256 scenarios, n = 100, m = 50,
    f32, 30 iterations), with the device time of its 15 largest kernels
@@ -51,12 +56,12 @@ them when none is named), each printing its own lines:
 
 A run of all the parts holds the card for several minutes (part 2 builds
 the library twice); naming parts runs only those, so a question about one
-of them costs the card time of that part alone (``probes`` alone: about
-30 s).  Run from the repository root.  The extra libraries go to
+of them costs the card time of that part alone.  Run from the repository root.  The extra libraries go to
 ``conex_tpu_torch/_build/`` beside the product build.
 """
 
 import ctypes
+import re
 import subprocess
 import sys
 import time
@@ -250,16 +255,47 @@ def part_profile(device):
 
 
 def part_probes(device):
-    from conex_tpu_torch.benchmarks import dev_pallas_probe
+    from conex_tpu_torch import _build
+    from conex_tpu_torch.benchmarks import dev_pallas_probe as p1
     from conex_tpu_torch.cones import psd_schur
 
     B, m, n = chip_smoke.PROBE_SHAPE
-    A, w, C = dev_pallas_probe.probe_inputs(B, m, n, device)
+    A, w, C = p1.probe_inputs(B, m, n, device)
     for name, (plain, kernel) in chip_smoke.probe_variants().items():
         profile(f"{name} kernel", lambda: kernel(A, w, C))
         profile(f"{name}_plain", lambda: plain(A, w, C))
     profile(f"K1 S=1, Bc={B}", lambda: psd_schur.schur_kernel(
         A.view(1, B, m, n, n), w.view(1, B, n, n), C.view(1, B, n, n)))
+
+    # K4's sandwich with T kept in shared memory (the shared route) against
+    # T written to device memory and read back (the device route), in turns.
+    plans = {route: p1.probe_at_plan(B, m, n, 4, route=route) for route in p1.ROUTES}
+    p1.check_kernel_inputs(A, w, C)
+    ms = {route: [] for route in plans}
+    for route in list(plans) + list(plans)[::-1]:
+        ms[route].append(chip_smoke.time_ms(lambda: p1.launch_at(A, w, C, plans[route]), 10))
+    for route, plan in plans.items():
+        log(f"[probes] K4 f32, {route} route: ms per call {ms[route]} (CUDA "
+            f"events, 10 calls each, in turns); {plan.describe()}; design traffic "
+            f"{plan.traffic_bytes() / 1e9:.4f} GB")
+    profile("K4 kernel, device route", lambda: p1.launch_at(A, w, C, plans["device"]))
+
+    # K4 under variants of csrc/schur_probes.cu built beside the product
+    # (K1's: one TF32 pass, no products; and other warp tiles of the
+    # sandwich), launch by launch, with the error against the f64 plain
+    # version: what the products cost in each launch, and what the tile does.
+    want = p1.fused_b_plain(A.double(), w.double(), C.double())
+    builds = source_variants("schur_probes.cu", {**K1_VARIANTS, **SANDWICH_TILES},
+                             _build._PROBE_AT_NAMES, _build._PROBE_AT_ARGTYPES)
+    product = _build.build()
+    try:
+        for name, build in builds.items():
+            _build._loaded = build
+            err = chip_smoke.rel_err(p1.fused_b_kernel(A, w, C), want)
+            log(f"[probes] K4 variant {name}: f32 rel err vs f64 plain {err:.3e}")
+            profile(f"K4 kernel, variant {name}", lambda: p1.fused_b_kernel(A, w, C))
+    finally:
+        _build._loaded = product
 
 
 def part_sdp(device):
@@ -293,26 +329,52 @@ _NO_PRODUCTS = _ONE_PASS + (
 K1_VARIANTS = {"one TF32 pass": _ONE_PASS, "no products": _NO_PRODUCTS}
 
 
-def schur_variant(name, edits):
-    """csrc/schur.cu with ``edits`` built alone into BUILD_DIR; a Build
-    whose library binds the Schur entry points only."""
+def _sandwich_tile(fm, fn, threads):
+    """Edits of csrc/schur_probes.cu: the sandwich's warp unit of fm x fn
+    fragments, in blocks of ``threads``."""
+    return (("constexpr int SW_FM = 1;", f"constexpr int SW_FM = {fm};"),
+            ("constexpr int SW_FN = 7;", f"constexpr int SW_FN = {fn};"),
+            ("constexpr int SW_THREADS = 448;", f"constexpr int SW_THREADS = {threads};"))
+
+
+SANDWICH_TILES = {"sandwich unit 2 x 4, 512 threads": _sandwich_tile(2, 4, 512),
+                  "sandwich unit 1 x 13, 224 threads": _sandwich_tile(1, 13, 224)}
+
+
+def source_variants(source, variants, entries, argtypes):
+    """csrc/<source> with the header csrc/mma.cuh written into it, under
+    each {name: edits} of ``variants``, built beside the product into
+    BUILD_DIR, one nvcc each in parallel; {name: Build} whose libraries
+    bind ``entries`` only."""
     from conex_tpu_torch import _build
 
-    text = _build.SOURCES[0].read_text()
-    for old, new in edits:
-        if old not in text:
-            raise RuntimeError(f"variant {name!r}: csrc/schur.cu lacks {old!r}")
-        text = text.replace(old, new)
-    stem = "variant_" + name.replace(" ", "_")
-    src, out = _build.BUILD_DIR / f"{stem}.cu", _build.BUILD_DIR / f"{stem}.so"
-    src.write_text(text)
-    _build._run_all([[_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(out),
-                      str(src)]])
-    lib = ctypes.CDLL(str(out))
-    for fn in ("conex_schur_f32", "conex_schur_f64"):
-        getattr(lib, fn).argtypes = _build._SCHUR_ARGTYPES
-        getattr(lib, fn).restype = ctypes.c_int
-    return _build.Build(lib=lib, path=out, seconds=0.0, log="")
+    path = _build.SOURCES[[p.name for p in _build.SOURCES].index(source)]
+    base = path.read_text().replace('#include "mma.cuh"',
+                                    _build.HEADERS[0].read_text())
+    procs = {}
+    for name, edits in variants.items():
+        text = base
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"variant {name!r}: csrc/{source} lacks {old!r}")
+            text = text.replace(old, new)
+        stem = f"variant_{path.stem}_" + re.sub(r"\W+", "_", name)  # nvcc-safe
+        src, out = _build.BUILD_DIR / f"{stem}.cu", _build.BUILD_DIR / f"{stem}.so"
+        src.write_text(text)
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(out), str(src)]
+        procs[name] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                             stderr=subprocess.STDOUT, text=True))
+    builds = {}
+    for name, (out, proc) in procs.items():
+        text = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"variant {name!r} failed to build:\n{text}")
+        lib = ctypes.CDLL(str(out))
+        for fn in entries:
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        builds[name] = _build.Build(lib=lib, path=out, seconds=0.0, log=text)
+    return builds
 
 
 def part_k1(device):
@@ -353,9 +415,12 @@ def part_k1(device):
 
     product = _build.build()
     oracle = psd_schur.schur_plain(A.double(), W.double(), C.double())
+    builds = source_variants("schur.cu", K1_VARIANTS,
+                             ("conex_schur_f32", "conex_schur_f64"),
+                             _build._SCHUR_ARGTYPES)
     try:
-        for name, edits in K1_VARIANTS.items():
-            _build._loaded = schur_variant(name, edits)
+        for name, build in builds.items():
+            _build._loaded = build
             err = chip_smoke.rel_err(psd_schur.schur_kernel(A, W, C), oracle)
             log(f"[k1] variant {name}: f32 rel err vs f64 oracle {err:.3e}")
             profile(f"K1 S=256, Bc=1 f32, variant {name}",
