@@ -36,8 +36,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    at S = 10,000: 30 iterations and no failure in both, median relative
    stats_k difference over iterations 1-2 <= 1e-3.  CUDA-event times of
    both at the three sizes;
-3c. the probe kernels K3-K6 (csrc/schur_probes.cu) against their plain
-   versions on the card, on the probes' inputs (seed 0): in f64 (relative
+3c. the probe kernels K3-K6 against their plain versions on the card (K3
+   and K6 run K1's kernels, csrc/schur.cu, under K1's plan at S = 1, Bc =
+   B, each record with that plan; K4 and K5 csrc/schur_probes.cu's), on
+   the probes' inputs (seed 0): in f64 (relative
    Frobenius error <= 1e-12) at two small shapes (one with two tiles of
    the Gram matrix) and at the probe shape
    (B=256, m=50, n=100), in f32 against the f64 plain version (<= 1e-4) at
@@ -64,23 +66,38 @@ Phases, each printing its own lines; any failure exits non-zero:
    and the plan of each size;
    the same workload at S = 10,000 through solve_scenarios with SOCCone
    (the general path), its it/s and its agreement with the fused path;
+4c. the LP path (no kernel: K1 and K2 must not launch on it):
+   benchmarks/bench_accuracy.py's dense LP (200 variables, 400
+   inequalities, f64, seed 0, mu target 1e-8) through
+   Program(device="cuda"), and a batch of 64 of them (scenario s drawn
+   with seed s, A of 41 MB) through solve_scenarios, each in both mu
+   modes (divergence and line search): every solve solved, relative gap
+   <= 1e-7 and dual residual <= 1e-10 (bench_accuracy.py's measures), y
+   within 1e-8 relative of the same solve on the CPU in as many
+   iterations; the wall per solve (best of 3) and Newton it/s;
 5. a known answer: a small f64 SDP through Program(device="cuda"), against
    lambda_min(C) and the CPU solve;
 5b. a known SOC answer through Program(device="cuda"): max b'y s.t.
    (1, y) in the Lorentz cone, y = b/|b|, and its dual, against the CPU;
+5c. the LP known answer of the repository's verify notes (maximize
+   y1 + 2 y2, optimum (1, 3), b'y = 7) on the card against the CPU, then
+   a warmstart resume after save_state / load_state (at most 3
+   iterations, as on the CPU);
 6. the probe entry points: benchmarks/dev_pallas_probe.py's main at
    256,50,100 and dev_tpu_probe2.py's part2 through their twins in
    conex_tpu_torch/benchmarks, on the card in f32: each variant's kernel
-   must launch; then one K4 call must hold no more device memory than its
-   plan's scratch (no At copy of A).
+   must launch, and K1's main-path entry and K2 must not; then one K4
+   call must hold no more device memory than its plan's scratch (no At
+   copy of A), and one K3 call no more than its plan's panel scratch and
+   partials.
 
-The last lines are the kernels' JSON record (K2's, K4's and K5's with
-their plans; with each kernel's bound:
+The last lines are the kernels' JSON record (K2's and K3-K6's with their
+plans; with each kernel's bound:
 the larger of its operations over the peak rate of the units that do
-them and its bytes over 3.35 TB/s; K1's, K4's and K5's products run on
-the tensor cores, three TF32 passes per f32 product at 495 TFLOP/s, K3's
-and K6's on CUDA cores at 67 TFLOP/s of float32), the card's name and
-power limit, and {"ok": true, "device": {...}}.  Imports nothing of JAX.
+them and its bytes over 3.35 TB/s; every Schur kernel's products run on
+the tensor cores, three TF32 passes per f32 product at 495 TFLOP/s), the
+card's name and power limit, and {"ok": true, "device": {...}}.  Imports
+nothing of JAX.
 """
 
 import json
@@ -93,13 +110,43 @@ SCHUR_REPLACES = "conex_tpu/cones/psd_pallas.py:48"
 FUSED_SOURCE = "conex_tpu_torch/csrc/fused_socp.cu"
 FUSED_REPLACES = "conex_tpu/parallel/fused_socp.py:234"
 PROBE_SOURCE = "conex_tpu_torch/csrc/schur_probes.cu"
-# (variant, its module in conex_tpu_torch/benchmarks, the TPU kernel)
-PROBES = (("fused_a", "dev_pallas_probe", "benchmarks/dev_pallas_probe.py:37"),
-          ("fused_b", "dev_pallas_probe", "benchmarks/dev_pallas_probe.py:69"),
-          ("fused_b2", "dev_tpu_probe2", "benchmarks/dev_tpu_probe2.py:104"),
-          ("fused_a2", "dev_tpu_probe2", "benchmarks/dev_tpu_probe2.py:180"))
+# (variant, its module in conex_tpu_torch/benchmarks, the TPU kernel, the
+# CUDA source its kernels are in: K3 and K6 run K1's)
+PROBES = (("fused_a", "dev_pallas_probe", "benchmarks/dev_pallas_probe.py:37",
+           SCHUR_SOURCE),
+          ("fused_b", "dev_pallas_probe", "benchmarks/dev_pallas_probe.py:69",
+           PROBE_SOURCE),
+          ("fused_b2", "dev_tpu_probe2", "benchmarks/dev_tpu_probe2.py:104",
+           PROBE_SOURCE),
+          ("fused_a2", "dev_tpu_probe2", "benchmarks/dev_tpu_probe2.py:180",
+           SCHUR_SOURCE))
 PROBE_SHAPE = (256, 50, 100)  # B, m, n: dev_pallas_probe.py:208
 AT_LAYOUT = ("fused_b", "fused_b2")  # K4 and K5: tr(A_v W A_u^T W^T)
+# The LP path: benchmarks/bench_accuracy.py:53-90's dense LP (m variables,
+# n inequalities, f64, solved to mu = 1e-8), once through Program and as a
+# batch of LP_BATCH scenarios (scenario s drawn with seed s) through
+# solve_scenarios, in both mu modes.  Limits: the relative gap and dual
+# residual of bench_accuracy.py:46-50 (the JAX package reaches 2.07e-8 and
+# 1.98e-14 there, BENCH_ACCURACY.json), and a single solve's y within
+# LP_Y_LIMIT relative of the same solve on the CPU with the same iteration
+# count.
+#
+# Every scenario of the batch is held to the gap and the dual residual, and
+# to the CPU by its objective (two solves within LP_GAP_LIMIT of the
+# optimum lie within it of each other) and its iteration count (within
+# the five final-centering steps of SolverConfig); the batch's median y to
+# LP_Y_LIMIT.  Not every scenario's y to LP_Y_LIMIT in as many iterations:
+# at this target the f64 iteration is as sensitive as that to one rounding.
+# On an H100 the CPU alone, with b moved by 2^-52, moved y by up to 1.1e-5
+# and the iteration count in 6 of 64 scenarios, as the card did (up to
+# 1.0e-5, in 3), while each y lies up to 1.6e-4 from its exact vertex
+# (this phase prints all three, every run).
+LP_SHAPE = (200, 400)  # m, n
+LP_BATCH = 64
+LP_GAP_LIMIT = 1e-7
+LP_DUAL_LIMIT = 1e-10
+LP_Y_LIMIT = 1e-8
+LP_CENTERING_SPREAD = 5
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # float32 outside the tensor cores, TF32 and float64 on the tensor cores,
 # and device memory.
@@ -892,6 +939,267 @@ def phase_soc_known_answer(device):
 
 
 # ---------------------------------------------------------------------------
+# The LP path (no kernel: the LP cone is elementwise work and two products)
+# ---------------------------------------------------------------------------
+
+
+def gap_stats(by, cx, b, Ax):
+    """Relative duality gap and dual-feasibility residual
+    (benchmarks/bench_accuracy.py:46-50)."""
+    import numpy as np
+
+    rel_gap = abs(cx - by) / (1.0 + abs(by))
+    dual_res = float(np.linalg.norm(Ax - b) / (1.0 + np.linalg.norm(b)))
+    return rel_gap, dual_res
+
+
+def lp_instance(seed):
+    """benchmarks/bench_accuracy.py:58-63's dense LP from a seed: A (n, m),
+    b (m,), c (n,)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    m, n = LP_SHAPE
+    A = rng.uniform(-1, 1, (n, m))
+    x0 = rng.uniform(0.5, 1.5, n)
+    b = A.T @ x0
+    c = rng.uniform(0.5, 1.5, n)
+    return A, b, c
+
+
+def lp_config(line_search):
+    """bench_accuracy.py:66-70, in either mu mode."""
+    from conex_tpu_torch import SolverConfig
+
+    return SolverConfig(max_iterations=100, inv_sqrt_mu_max=1e4,
+                        prepare_dual_variables=True,
+                        enable_line_search=line_search)
+
+
+def check_lp(label, A, b, c, card, cpu, batch=False):
+    """Whether the card's solution meets the LP path's limits, logging what
+    breaks them and, beside it, the tail of both trajectories; and its
+    (rel_gap, dual_res, y's relative distance from the CPU's).  ``card``
+    and ``cpu``: (y, x, iterations, stats_k, stats_dinf) of one solve.
+
+    Always: the relative gap and the dual residual.  A single solve: y
+    within LP_Y_LIMIT of the CPU's in as many iterations.  A scenario of
+    the batch: its objective within LP_GAP_LIMIT of the CPU's and its
+    iteration count within LP_CENTERING_SPREAD of it (see LP_Y_LIMIT)."""
+    import numpy as np
+
+    y, x, iters, k, dinf = card
+    y_cpu, _, iters_cpu, k_cpu, dinf_cpu = cpu
+    rel_gap, dual_res = gap_stats(float(b @ y), float(c @ x), b, A.T @ x)
+    e_cpu = float(np.linalg.norm(y - y_cpu) / np.linalg.norm(y_cpu))
+    e_obj = abs(float(b @ (y - y_cpu))) / (1.0 + abs(float(b @ y_cpu)))
+    ok = rel_gap <= LP_GAP_LIMIT and dual_res <= LP_DUAL_LIMIT
+    if batch:
+        ok = (ok and e_obj <= LP_GAP_LIMIT
+              and abs(iters - iters_cpu) <= LP_CENTERING_SPREAD)
+    else:
+        ok = ok and e_cpu <= LP_Y_LIMIT and iters == iters_cpu
+    if not ok:
+        last = max(iters, iters_cpu)
+        log(f"LP {label}: {iters} iterations (CPU {iters_cpu}), relative gap "
+            f"{rel_gap:.3e} (limit {LP_GAP_LIMIT}), dual residual {dual_res:.3e} "
+            f"(limit {LP_DUAL_LIMIT}), y vs CPU {e_cpu:.3e}, objective vs CPU "
+            f"{e_obj:.3e}, least slack {float((c - A @ y).min()):.3e}")
+        for name, card_t, cpu_t in (("stats_k", k, k_cpu), ("stats_dinf", dinf, dinf_cpu)):
+            log(f"  {name} of iterations {last - 4}-{last - 1}: card "
+                f"{[float(v) for v in card_t[last - 4:last]]}, CPU "
+                f"{[float(v) for v in cpu_t[last - 4:last]]}")
+    return ok, (rel_gap, dual_res, e_cpu)
+
+
+def lp_vertex(A, c, y):
+    """The vertex y* of the m inequalities tightest at y: A_act y* = c_act,
+    the exact optimum of a nondegenerate LP whose solve ended at y."""
+    import numpy as np
+
+    act = np.argsort(c - A @ y)[:A.shape[1]]
+    return np.linalg.solve(A[act], c[act])
+
+
+def program_solution(prog, res):
+    """(y, x, iterations, stats_k, stats_dinf) of a Program's LP solve."""
+    raw = res._raw
+    return (res.y, prog.get_dual_variable(0), res.num_iterations, raw.stats_k,
+            raw.stats_dinf)
+
+
+def batch_solution(r, s):
+    """The same of scenario s of a batched solve (numpy SolveResult); x as
+    Program.get_dual_variable forms it."""
+    x = r.ws[0][s] / (r.k[s] * r.b_scaling[s])
+    return (r.y[s], x, int(r.num_iterations[s]), r.stats_k[s], r.stats_dinf[s])
+
+
+def phase_lp_path(device):
+    """The LP path on the card: bench_accuracy's LP through Program, then
+    LP_BATCH of them through solve_scenarios, in both mu modes, each held
+    to its limits and to the same solve on the CPU.  No kernel runs on it:
+    K1 and K2 must not launch."""
+    import numpy as np
+    import torch
+
+    from conex_tpu_torch import Program, convert, solve_scenarios
+    from conex_tpu_torch.cones import psd_schur
+    from conex_tpu_torch.parallel import fused_socp
+
+    kernels = (psd_schur.schur_kernel, fused_socp.solve_socp_kernel)
+    for kernel in kernels:
+        kernel.launches = 0
+    m, n = LP_SHAPE
+    A, b, c = lp_instance(0)
+    for line_search in (False, True):
+        mode = "line search" if line_search else "divergence"
+        config = lp_config(line_search)
+        out = {}
+        for where in ("card", "cpu"):
+            prog = Program(m, device=device if where == "card" else "cpu")
+            prog.add_linear_constraint(A, c)
+            res = prog.solve(b, config)
+            if not res.solved:
+                fail(f"LP {m} x {n} ({mode}) not solved on the {where}")
+            out[where] = (prog, res)
+        prog, res = out["card"]
+        ok, (gap, dual, e_cpu) = check_lp(
+            f"{m} x {n} ({mode})", A, b, c,
+            *(program_solution(*out[where]) for where in ("card", "cpu")))
+        if not ok:
+            fail(f"the LP {m} x {n} ({mode}) breaks the limits on the card")
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            prog.solve(b, config)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        log(f"[4c lp path] Program, {m} vars x {n} inequalities, f64, {mode}: "
+            f"solved in {res.num_iterations} iterations (CPU "
+            f"{out['cpu'][1].num_iterations}), relative gap {gap:.3e} (limit "
+            f"{LP_GAP_LIMIT}), dual residual {dual:.3e} (limit {LP_DUAL_LIMIT}), "
+            f"least slack {float((c - A @ res.y).min()):.3e}, y vs CPU {e_cpu:.3e} "
+            f"(limit {LP_Y_LIMIT}); wall per solve {best * 1e3:.3f} ms (best of 3), "
+            f"Newton it/s {res.num_iterations / best:.2f}")
+
+    # The batch: scenario s drawn with seed s, as one solve.
+    S = LP_BATCH
+    As, bs, cs = map(np.stack, zip(*(lp_instance(s) for s in range(S))))
+    broken = {}
+    for line_search in (False, True):
+        mode = "line search" if line_search else "divergence"
+        config = lp_config(line_search)
+
+        def run(bv, dev):
+            blk = convert.linear_cone(As, cs, dev)
+            return solve_scenarios(
+                (blk,), (), convert.tensor(bv, dev),
+                (torch.ones((S, n), dtype=torch.float64, device=dev),),
+                convert.scalars(dict(k=np.zeros(S), b_scaling=np.ones(S),
+                                     c_scaling=np.ones(S)), dev), config)
+
+        t0 = time.perf_counter()
+        r = convert.to_numpy(run(bs, device))
+        first = time.perf_counter() - t0
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run(bs, device)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        r_cpu = convert.to_numpy(run(bs, torch.device("cpu")))
+        # The CPU's own sensitivity to one rounding: b moved by 2^-52.
+        r_ulp = convert.to_numpy(run(bs * (1 + 2.0**-52), torch.device("cpu")))
+        rel = lambda u, v: np.linalg.norm(u - v, axis=1) / np.linalg.norm(v, axis=1)  # noqa: E731
+        vertex = np.stack([lp_vertex(As[s], cs[s], r_cpu.y[s]) for s in range(S)])
+        log(f"[4c lp path] batch ({mode}): y card vs CPU max {rel(r.y, r_cpu.y).max():.3e} "
+            f"median {np.median(rel(r.y, r_cpu.y)):.3e}, iterations differ in "
+            f"{int((r.num_iterations != r_cpu.num_iterations).sum())}; CPU with b "
+            f"moved by 2^-52 vs CPU: y max {rel(r_ulp.y, r_cpu.y).max():.3e} median "
+            f"{np.median(rel(r_ulp.y, r_cpu.y)):.3e}, iterations differ in "
+            f"{int((r_ulp.num_iterations != r_cpu.num_iterations).sum())}; distance "
+            f"from the optimal vertex: card max {rel(r.y, vertex).max():.3e}, CPU max "
+            f"{rel(r_cpu.y, vertex).max():.3e}, CPU moved max {rel(r_ulp.y, vertex).max():.3e}")
+        if not r.solved.all():
+            fail(f"LP batch ({mode}): scenarios {np.flatnonzero(~r.solved).tolist()} "
+                 "not solved on the card")
+        worst, bad = np.zeros(3), []
+        for s in range(S):
+            ok, errs = check_lp(f"batch scenario {s} ({mode})", As[s], bs[s], cs[s],
+                                batch_solution(r, s), batch_solution(r_cpu, s),
+                                batch=True)
+            worst = np.maximum(worst, errs)
+            if not ok:
+                bad.append(s)
+        total = int(r.num_iterations.sum())
+        log(f"[4c lp path] batch of {S} scenarios (seeds 0-{S - 1}), f64, {mode}: "
+            f"all solved in {int(r.num_iterations.min())}-{int(r.num_iterations.max())} "
+            f"iterations; worst relative gap {worst[0]:.3e}, "
+            f"dual residual {worst[1]:.3e}, y vs CPU {worst[2]:.3e}; wall per solve "
+            f"{best * 1e3:.3f} ms (best of 3; first {first * 1e3:.3f} ms), Newton "
+            f"it/s {total / best:.2f} ({total} iterations)")
+        median = float(np.median(rel(r.y, r_cpu.y)))
+        if median > LP_Y_LIMIT:
+            log(f"LP batch ({mode}): the median y vs CPU {median:.3e} exceeds "
+                f"{LP_Y_LIMIT}")
+            bad.append("median")
+        if bad:
+            broken[mode] = bad
+    if broken:
+        fail(f"LP batch: scenarios break the limits on the card: {broken}")
+    if any(kernel.launches for kernel in kernels):
+        fail("K1 or K2 launched on the LP path")
+
+
+def phase_lp_known_answer(device):
+    """The verify skill's LP known answer on the card against the CPU, then
+    a warmstart resume after save_state / load_state."""
+    import numpy as np
+
+    from conex_tpu_torch import WARMSTART, Program, SolverConfig
+
+    # maximize y1 + 2 y2  s.t.  y1 <= 2, y2 <= 3, y1 + y2 <= 4: optimum (1, 3)
+    A = np.array([[1.0, 0.0], [0.0, 1.0], [1.0, 1.0]])
+    c = np.array([2.0, 3.0, 4.0])
+    b = np.array([1.0, 2.0])
+    config = SolverConfig(prepare_dual_variables=True, inv_sqrt_mu_max=1e4,
+                          max_iterations=50)
+    warm = config.replace(initialization_mode=WARMSTART)
+    out = {}
+    for where in ("card", "cpu"):
+        dev = device if where == "card" else "cpu"
+        prog = Program(2, device=dev)
+        prog.add_linear_constraint(A, c)
+        res = prog.solve(b, config)
+        x = prog.get_dual_variable(0)
+        resumed = Program(2, device=dev)
+        resumed.add_linear_constraint(A, c)
+        resumed.load_state(prog.save_state())
+        res2 = resumed.solve(b, warm)
+        out[where] = (res, x, res2)
+    (res, x, res2), (res_cpu, x_cpu, res2_cpu) = out["card"], out["cpu"]
+    e_obj = abs(float(b @ res.y) - 7.0)
+    e_cpu = float(np.abs(res.y - res_cpu.y).max())
+    e_dual = float(np.abs(x - x_cpu).max())
+    e_kkt = float(np.abs(A.T @ x - b).max())
+    e_warm = float(np.abs(res2.y - res2_cpu.y).max())
+    log(f"[5c lp known answer] y on the card {res.y.tolist()} in "
+        f"{res.num_iterations} iterations: |b'y - 7| {e_obj:.3e} (limit 1e-6), "
+        f"max |card - CPU| {e_cpu:.3e} (limit 1e-8), dual max |card - CPU| "
+        f"{e_dual:.3e} (limit 1e-8), max |A'x - b| {e_kkt:.3e} (limit 1e-6); "
+        f"warmstart after save_state/load_state: solved {res2.solved} in "
+        f"{res2.num_iterations} iterations (limit 3, CPU {res2_cpu.num_iterations}), "
+        f"max |card - CPU| {e_warm:.3e} (limit 1e-8)")
+    if not (res.solved and res_cpu.solved and e_obj <= 1e-6 and e_cpu <= 1e-8
+            and e_dual <= 1e-8 and e_kkt <= 1e-6):
+        fail("the LP known answer does not hold on the card")
+    if not (res2.solved and res2.num_iterations <= 3
+            and res2.num_iterations == res2_cpu.num_iterations and e_warm <= 1e-8):
+        fail("the warmstart resume after save_state/load_state does not hold")
+
+
+# ---------------------------------------------------------------------------
 # The Schur-phase probes (kernels K3-K6)
 # ---------------------------------------------------------------------------
 
@@ -906,12 +1214,23 @@ def nonsymmetric_inputs(B, m, n, seed, device):
                  for shape in ((B, m, n, n), (B, n, n), (B, n, n)))
 
 
+def a_plan_record(plan, itemsize):
+    """What a K3/K6 call runs under: K1's plan at S = 1, Bc = B, with its
+    scratch (the panels of a chunk and the partials) in bytes."""
+    import math
+
+    return dict(cones_per_chunk=plan.cones_per_chunk, chunks=plan.chunks,
+                depth_chunks=plan.depth_chunks, launches=plan.launches,
+                scratch_bytes=itemsize * (math.prod(plan.scratch_shape)
+                                          + math.prod(plan.partial_shape)))
+
+
 def probe_variants():
     """{variant: (its plain version, its kernel wrapper)} of PROBES."""
     import importlib
 
     out = {}
-    for name, module, _ in PROBES:
+    for name, module, _, _ in PROBES:
         mod = importlib.import_module(f"conex_tpu_torch.benchmarks.{module}")
         out[name] = (getattr(mod, f"{name}_plain"), getattr(mod, f"{name}_kernel"))
     return out
@@ -940,6 +1259,12 @@ def phase_probe_kernels(device):
             f"design traffic, counted from the plan, "
             f"{plan.traffic_bytes() / 1e9:.4f} GB, "
             f"{1e3 * plan.traffic_bytes() / HBM_BYTES_PER_S:.4f} ms at 3.35 TB/s")
+    for name in variants:
+        if name not in AT_LAYOUT:
+            records[name]["plan"] = a_plan_record(
+                dev_pallas_probe.probe_a_plan(B, m, n, 4), 4)
+            log(f"[3c probe kernels] {name} probe shape f32 plan (K1's, S=1, "
+                f"Bc={B}): {records[name]['plan']}")
     # m + 1 = 71 at the second shape: two 64-row tiles of the Gram matrix.
     # Nonsymmetric inputs tell K4/K5's function from the oracle's, and hold
     # every f32 fragment path to a transposed read or store: with symmetric
@@ -1019,8 +1344,8 @@ def phase_probe_kernels(device):
         log(f"[3c probe kernels] {name} probe shape f32 ms per call: kernel "
             f"{ms['kernel']}, plain {ms['plain']} (CUDA events, 10 calls each)")
         records[name].update(ms=min(ms["kernel"]), plain_ms=min(ms["plain"]),
-                             **(schur_bound(B, 1, m, n, tensor_cores=True, at_layout=True)
-                                if name in AT_LAYOUT else schur_bound(B, 1, m, n)))
+                             **schur_bound(B, 1, m, n, tensor_cores=True,
+                                           at_layout=name in AT_LAYOUT))
     ms = {"einsum_schur": [], "K1": []}
     fns = {"einsum_schur": lambda: dev_pallas_probe.einsum_schur(A, w, C),
            "K1": lambda: psd_schur.schur_kernel(*k1_args)}
@@ -1071,6 +1396,22 @@ def phase_probe_entry_points():
         f"A {A.numel() * A.element_size()} bytes")
     if extra > plan.scratch_bytes + (1 << 20):
         fail("K4's call holds more than its plan's scratch: a copy of A?")
+
+    # K3 runs K1's kernels on views: a call holds K1's panel scratch and
+    # partials under its plan, and no copy of A.
+    a_plan = a_plan_record(dev_pallas_probe.probe_a_plan(*PROBE_SHAPE, A.element_size()),
+                           A.element_size())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    dev_pallas_probe.fused_a_kernel(A, w, C)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - held
+    log(f"[6 probe entry points] one K3 call: peak device memory above what it "
+        f"was given {extra} bytes; its plan's panel scratch and partials "
+        f"{a_plan['scratch_bytes']} bytes")
+    if extra > a_plan["scratch_bytes"] + (1 << 20):
+        fail("K3's call holds more than its plan's scratch: a copy of A?")
     return launches
 
 
@@ -1102,8 +1443,10 @@ def main():
     schur["launches"] = phase_main_path(device)
     phase_small_vs_cpu(device)
     fused["launches"] = phase_socp_main_path(device)
+    phase_lp_path(device)
     phase_known_answer(device)
     phase_soc_known_answer(device)
+    phase_lp_known_answer(device)
     for name, n in phase_probe_entry_points().items():
         probes[name]["launches"] = n
 
@@ -1112,8 +1455,9 @@ def main():
              replaces=SCHUR_REPLACES, library_ms=None, **schur),
         dict(name="fused_socp", route="cuda", source=FUSED_SOURCE,
              replaces=FUSED_REPLACES, library_ms=None, **fused),
-    ] + [dict(name=name, route="cuda", source=PROBE_SOURCE, replaces=replaces,
-              library_ms=None, **probes[name]) for name, _, replaces in PROBES]
+    ] + [dict(name=name, route="cuda", source=source, replaces=replaces,
+              library_ms=None, **probes[name])
+         for name, _, replaces, source in PROBES]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "plan")
     log(LIBRARY_NOTE)

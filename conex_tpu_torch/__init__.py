@@ -3,9 +3,10 @@
 A port of ``conex_tpu`` (JAX) that mirrors its module layout, one twin per
 module.  It covers the batched dense-SDP solve (dense LMI cones, the
 divergence mu update and the dense LLT KKT path, with the Schur phase as a
-hand-written CUDA kernel, ``csrc/schur.cu``) and the batched SOCP solve
-(the SOC cone on the general path, and ``parallel.fused_socp``, the whole
-solve as one CUDA kernel, ``csrc/fused_socp.cu``).  Each kernel runs on the
+hand-written CUDA kernel, ``csrc/schur.cu``), the batched SOCP solve (the
+SOC cone on the general path, and ``parallel.fused_socp``, the whole
+solve as one CUDA kernel, ``csrc/fused_socp.cu``) and the LP cone with
+the line-search mu update.  Each kernel runs on the
 card and its plain PyTorch twin on the CPU.  The package imports torch and
 numpy, never jax.
 """
@@ -19,6 +20,9 @@ from .config import (
     WARMSTART,
     SolverConfig,
 )
+from .cones.lp import LinearCone
+from .cones.psd import DenseLMICone
+from .cones.soc import SOCCone
 from .parallel.sharded import solve_scenarios
 from .program import Program, Result
 
@@ -29,8 +33,11 @@ __all__ = [
     "KKT_SOLVER_LLT",
     "KKT_SOLVER_QR",
     "WARMSTART",
+    "DenseLMICone",
+    "LinearCone",
     "Program",
     "Result",
+    "SOCCone",
     "SolverConfig",
     "solve_scenarios",
 ]

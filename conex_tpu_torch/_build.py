@@ -53,16 +53,11 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # conex_schur_f{32,64}(A, W, C, P, part, G, AW, AQc, wc, cqc, S, Bc, m, n,
-# Q, D, R, stream)
+# Q, D, R, stream): K1, and the probes K3 and K6
 _SCHUR_ARGTYPES = [_P] * 10 + [_I] * 7 + [_P]
 # conex_socp_fused_f{32,64}(23 device pointers, S, nc, n1, m, plan,
 # iparams, dparams, stream); plan, iparams and dparams are host arrays
 _SOCP_ARGTYPES = [_P] * 23 + [_I] * 4 + [_P] * 4
-# conex_probe_{a,a2}_f{32,64}(A, W, C, X, Y, part, G, AW, AQc, wc, cqc, B,
-# m, n, stream): K3 and K6
-_PROBE_ARGTYPES = [_P] * 11 + [_I] * 3 + [_P]
-_PROBE_NAMES = tuple(f"conex_probe_{v}_{t}" for v in ("a", "a2")
-                     for t in ("f32", "f64"))
 # conex_probe_at_f{32,64}(A, W, C, Y, Tb, part, G, AW, AQc, wc, cqc, B, m,
 # n, Q, D, SC, route, opb, stream): K4 and K5
 _PROBE_AT_ARGTYPES = [_P] * 11 + [_I] * 8 + [_P]
@@ -123,7 +118,6 @@ def _bind(lib: ctypes.CDLL) -> None:
     for names, argtypes in (
         (("conex_schur_f32", "conex_schur_f64"), _SCHUR_ARGTYPES),
         (("conex_socp_fused_f32", "conex_socp_fused_f64"), _SOCP_ARGTYPES),
-        (_PROBE_NAMES, _PROBE_ARGTYPES),
         (_PROBE_AT_NAMES, _PROBE_AT_ARGTYPES),
     ):
         for name in names:

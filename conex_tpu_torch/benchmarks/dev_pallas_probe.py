@@ -11,7 +11,9 @@ from A (B, m, n, n), w and C (B, n, n), in two formulations, each against
 
 * ``fused_a`` (K3, the A layout): the panel P = A.reshape(m n, n) @ W as
   one product, then G as one product of depth n^2 with the panel's
-  transpose;
+  transpose.  That is K1's function (cones/psd_schur.py) for any input,
+  and K1's layout with S = 1, Bc = B, so its kernel is K1's kernels on
+  views of A, W and C, under ``probe_a_plan``;
 * ``fused_b`` (K4, the At layout): At = A with axes 1 and 2 swapped,
   Pb = At.reshape(n m, n) @ W and Rb = W @ At.reshape(n, m n), then
   G = sum_i Pb[i] Rb[i]^T.  That is G_vu = tr(A_v W A_u^T W^T), the
@@ -21,10 +23,10 @@ from A (B, m, n, n), w and C (B, n, n), in two formulations, each against
   AQc_v = <A_v, N>, w_dot_c = <C, W^T>, c_dot_Qc = <C, N>, under the plan
   of ``probe_at_plan``.
 
-Each ``fused_*`` sends a CUDA tensor to its hand-written kernel in
-``csrc/schur_probes.cu`` (``fused_*_kernel``, with a ``.launches`` counter)
-and a CPU tensor to its plain PyTorch version (``fused_*_plain``); any
-other device raises.  The kernels compute in the inputs' type, float32 or
+Each ``fused_*`` sends a CUDA tensor to its hand-written kernel
+(``fused_*_kernel``, with a ``.launches`` counter: K3 in ``csrc/schur.cu``,
+K4 in ``csrc/schur_probes.cu``) and a CPU tensor to its plain PyTorch
+version (``fused_*_plain``); any other device raises.  The kernels compute in the inputs' type, float32 or
 float64.
 
     python -m conex_tpu_torch.benchmarks.dev_pallas_probe [B,m,n] [--device cpu]
@@ -42,6 +44,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from ..cones import psd_schur
 
 
 def einsum_schur(A, w, C):
@@ -93,9 +97,6 @@ def fused_b_plain(A, w, C):
 
 
 # ---------------- The kernels --------------------------------------------------
-_GRID_LIMIT = 65535  # CUDA's bound on gridDim.y, which runs over the cones
-
-
 def check_shapes(A, w, C):
     """Raise unless A is (B, m, n, n) and w, C are (B, n, n) of one floating
     type on one device."""
@@ -117,37 +118,18 @@ def check_shapes(A, w, C):
 
 
 def check_kernel_inputs(A, w, C):
+    """check_shapes, on the card, contiguous, and no cone of 2^31 elements
+    or more (a cone's offsets are 32-bit); each launcher's plan checks its
+    own grids."""
     check_shapes(A, w, C)
     if not A.is_cuda:
         raise ValueError("the probe kernels take CUDA tensors")
     if not (A.is_contiguous() and w.is_contiguous() and C.is_contiguous()):
         raise ValueError("the probe kernels take contiguous tensors")
     B, m, n, _ = A.shape
-    if B > _GRID_LIMIT or (m + 1) * n * n >= 2**31:
-        raise ValueError(f"shape {tuple(A.shape)} exceeds the kernels' launch grid")
-
-
-def launch(variant, A, w, C):
-    """Run conex_probe_<variant> of csrc/schur_probes.cu (K3 or K6) on the
-    checked A, w, C; returns (G, AW, AQc, w_dot_c, c_dot_Qc)."""
-    from .._build import build
-
-    B, m, n, _ = A.shape
-    suffix = "f32" if A.dtype == torch.float32 else "f64"
-    fn = getattr(build().lib, f"conex_probe_{variant}_{suffix}")
-    kw = dict(dtype=A.dtype, device=A.device)
-    X = torch.empty((B, m + 1, n, n), **kw)  # panel scratch
-    Y = torch.empty((B, m + 1, n, n), **kw)
-    part = torch.empty((B, (m + 1) * (m + 2)), **kw)  # one partial per cone
-    G, AW, AQc, wc, cqc = _outputs(m, kw)
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream(A.device).cuda_stream
-        err = fn(A.data_ptr(), w.data_ptr(), C.data_ptr(), X.data_ptr(),
-                 Y.data_ptr(), part.data_ptr(), G.data_ptr(), AW.data_ptr(),
-                 AQc.data_ptr(), wc.data_ptr(), cqc.data_ptr(), B, m, n, stream)
-    if err != 0:
-        raise RuntimeError(f"probe kernel {variant} launch failed: cudaError {err}")
-    return G, AW, AQc, wc, cqc
+    if (m + 1) * n * n >= 2**31:
+        raise ValueError(f"shape {tuple(A.shape)} exceeds the kernels' 32-bit "
+                         "offsets within a cone")
 
 
 def _outputs(m, kw):
@@ -155,10 +137,30 @@ def _outputs(m, kw):
             torch.empty((m,), **kw), torch.empty((), **kw), torch.empty((), **kw))
 
 
+def probe_a_plan(B, m, n, itemsize, sms=psd_schur.H100_SMS):
+    """The plan of one K3 or K6 call: K1's (cones/psd_schur.py::schur_plan)
+    for one program of B cones, S = 1 and Bc = B."""
+    return psd_schur.schur_plan(1, B, m, n, itemsize, sms)
+
+
+def launch_a(A, w, C):
+    """K3's function on the card from the checked A, w, C: csrc/schur.cu's
+    kernels (K1's) on the views A[None] (1, B, m, n, n), w[None] and
+    C[None] (1, B, n, n), no copy, under probe_a_plan; returns (G, AW,
+    AQc, w_dot_c, c_dot_Qc) of one program."""
+    B, m, n, _ = A.shape
+    sms = torch.cuda.get_device_properties(A.device).multi_processor_count
+    plan = probe_a_plan(B, m, n, A.element_size(), sms)
+    plan.check()
+    G, AW, AQc, wc, cqc = psd_schur.launch_schur(A[None], w[None], C[None], plan)
+    return G[0], AW[0], AQc[0], wc[0], cqc[0]
+
+
 def fused_a_kernel(A, w, C):
-    """K3 on the card (replaces dev_pallas_probe.py::_kernel_a)."""
+    """K3 on the card (replaces dev_pallas_probe.py::_kernel_a): K1's
+    kernels, since K3 computes K1's function for any input (launch_a)."""
     check_kernel_inputs(A, w, C)
-    out = launch("a", A, w, C)
+    out = launch_a(A, w, C)
     fused_a_kernel.launches += 1
     return out
 

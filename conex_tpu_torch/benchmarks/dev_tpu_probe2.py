@@ -4,10 +4,9 @@ Twin of part 2 of ``benchmarks/dev_tpu_probe2.py``: ``fused_b2`` (K5) and
 ``fused_a2`` (K6) are the At-layout and A-layout formulations of
 ``dev_pallas_probe`` as the TPU kernels run them with m padded to 8 and n
 to 128.  Padding has no twin here, since zero padding changes no sum: the
-plain versions are the formulations of K4 and K3; K5's kernel is K4's
-(``launch_at``, whose mma tiles round every edge), and K6's reads the
-unpadded operands and rounds only the live rows of its Gram tile up to a
-multiple of 8.
+plain versions are the formulations of K4 and K3, and the kernels too:
+K5's is K4's (``launch_at``, whose mma tiles round every edge), K6's is
+K3's, K1's kernels (``launch_a``, whose 8 x 8 blocks round every edge).
 
 Part 1 of the JAX probe (bf16 split ladders and optimization barriers) is
 a TPU precision workaround and is not ported (ROADMAP.md, "Not to port");
@@ -22,7 +21,7 @@ import argparse
 
 from .dev_pallas_probe import (
     check, check_kernel_inputs, einsum_schur, fused_a_plain, fused_b_plain,
-    launch, launch_at, probe_inputs, route, timed,
+    launch_a, launch_at, probe_inputs, route, timed,
 )
 
 
@@ -55,9 +54,10 @@ fused_b2_kernel.launches = 0
 
 
 def fused_a2_kernel(A, w, C):
-    """K6 on the card (replaces dev_tpu_probe2.py::_kernel_a2)."""
+    """K6 on the card (replaces dev_tpu_probe2.py::_kernel_a2): K3's
+    kernels, K1's, since the padding changes no sum."""
     check_kernel_inputs(A, w, C)
-    out = launch("a2", A, w, C)
+    out = launch_a(A, w, C)
     fused_a2_kernel.launches += 1
     return out
 

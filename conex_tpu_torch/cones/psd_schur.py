@@ -13,7 +13,11 @@ kernel in ``csrc/schur.cu`` (float32 or float64), or the call raises; a CPU
 tensor goes to ``schur_plain``, the einsum formulation of
 ``conex_tpu/cones/psd.py:182-209`` with an explicit scenario axis.
 ``schur_kernel.launches`` counts the kernel's calls: one per call, whatever
-number of CUDA launches the call makes (``SchurPlan.launches``).
+number of CUDA launches the call makes (``SchurPlan.launches``).  The
+probes K3 and K6 (benchmarks/dev_pallas_probe.py, dev_tpu_probe2.py)
+compute this function for one program of cones and run the same kernels
+through ``launch_schur``, which counts nothing: their wrappers keep their
+own counts.
 """
 
 from __future__ import annotations
@@ -206,6 +210,42 @@ def schur_plan(S, Bc, m, n, itemsize, sms=H100_SMS):
                      units_per_chunk=per_depth)
 
 
+def launch_schur(A, W, C, plan):
+    """Run csrc/schur.cu's kernels under ``plan`` on A (S, Bc, m, n, n), W
+    and C (S, Bc, n, n), contiguous CUDA tensors of one type (float32 or
+    float64) that the caller has checked; returns (G, AW, AQc, w_dot_c,
+    c_dot_Qc) of shapes (S, m, m), (S, m), (S, m), (S,), (S,).  Counts no
+    launch: ``schur_kernel`` and the probes K3/K6 keep their own counts."""
+    from .._build import build
+
+    S, Bc, m, n, _ = A.shape
+    if (plan.S, plan.Bc, plan.m, plan.n) != (S, Bc, m, n):
+        raise ValueError(f"the plan is for {(plan.S, plan.Bc, plan.m, plan.n)}, "
+                         f"not {(S, Bc, m, n)}")
+    lib = build().lib
+    fn = lib.conex_schur_f32 if A.dtype == torch.float32 else lib.conex_schur_f64
+    kw = dict(dtype=A.dtype, device=A.device)
+    P = torch.empty(plan.scratch_shape, **kw)  # panel scratch of one chunk
+    part = None if plan.direct else torch.empty(plan.partial_shape, **kw)
+    G = torch.empty((S, m, m), **kw)
+    AW = torch.empty((S, m), **kw)
+    AQc = torch.empty((S, m), **kw)
+    wc = torch.empty((S,), **kw)
+    cqc = torch.empty((S,), **kw)
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream(A.device).cuda_stream
+        err = fn(
+            A.data_ptr(), W.data_ptr(), C.data_ptr(), P.data_ptr(),
+            None if part is None else part.data_ptr(),
+            G.data_ptr(), AW.data_ptr(), AQc.data_ptr(), wc.data_ptr(),
+            cqc.data_ptr(), S, Bc, m, n, plan.cones_per_chunk,
+            plan.depth_chunks, plan.units_per_chunk, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"schur kernel launch failed: cudaError {err}")
+    return G, AW, AQc, wc, cqc
+
+
 def schur_kernel(A, W, C):
     """Launch the CUDA kernel on CUDA tensors; raises on what it does not take."""
     if not (A.is_cuda and W.is_cuda and C.is_cuda):
@@ -230,32 +270,9 @@ def schur_kernel(A, W, C):
     sms = torch.cuda.get_device_properties(A.device).multi_processor_count
     plan = schur_plan(S, Bc, m, n, A.element_size(), sms)
     plan.check()
-
-    from .._build import build
-
-    lib = build().lib
-    fn = lib.conex_schur_f32 if A.dtype == torch.float32 else lib.conex_schur_f64
-    kw = dict(dtype=A.dtype, device=A.device)
-    P = torch.empty(plan.scratch_shape, **kw)  # panel scratch of one chunk
-    part = None if plan.direct else torch.empty(plan.partial_shape, **kw)
-    G = torch.empty((S, m, m), **kw)
-    AW = torch.empty((S, m), **kw)
-    AQc = torch.empty((S, m), **kw)
-    wc = torch.empty((S,), **kw)
-    cqc = torch.empty((S,), **kw)
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream(A.device).cuda_stream
-        err = fn(
-            A.data_ptr(), W.data_ptr(), C.data_ptr(), P.data_ptr(),
-            None if part is None else part.data_ptr(),
-            G.data_ptr(), AW.data_ptr(), AQc.data_ptr(), wc.data_ptr(),
-            cqc.data_ptr(), S, Bc, m, n, plan.cones_per_chunk,
-            plan.depth_chunks, plan.units_per_chunk, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"schur kernel launch failed: cudaError {err}")
+    out = launch_schur(A, W, C, plan)
     schur_kernel.launches += 1
-    return G, AW, AQc, wc, cqc
+    return out
 
 
 schur_kernel.launches = 0

@@ -1,7 +1,8 @@
 """Carry problem data and solver state between numpy and the port.
 
 The JAX package's data and state convert to numpy with ``np.asarray``
-(cone tensors ``DenseLMICone.A/C`` and ``SOCCone.A/c``, ``PSDState``
+(cone tensors ``LinearCone.A/c``, ``DenseLMICone.A/C`` and
+``SOCCone.A/c``, ``PSDState``
 fields, the init scalars); these helpers turn such numpy arrays into the
 port's tensors on a given device, and a port ``SolveResult`` or
 ``FusedSOCPResult`` back into numpy (``to_numpy``).  The field names and
@@ -13,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .cones.lp import LinearCone
 from .cones.psd import DenseLMICone, PSDState
 from .cones.soc import SOCCone
 
@@ -20,6 +22,11 @@ from .cones.soc import SOCCone
 def tensor(x, device=None) -> torch.Tensor:
     """A numpy array (or array-like) as a contiguous tensor of its dtype."""
     return torch.as_tensor(np.array(x, order="C"), device=device)
+
+
+def linear_cone(A, c, device=None) -> LinearCone:
+    """LinearCone from A (S, n, v) and c (S, n)."""
+    return LinearCone(A=tensor(A, device), c=tensor(c, device))
 
 
 def lmi_cone(A, C, device=None) -> DenseLMICone:

@@ -1,47 +1,30 @@
-// The four Schur-phase probe kernels (K3-K6), for Hopper (sm_90a).
+// The Schur-phase probe kernels K4 and K5, for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernels of the probes in benchmarks/:
-//   K3  dev_pallas_probe.py::_kernel_a   (fused_a)   A layout
+// Replaces the Pallas TPU kernels of the At-layout probes in benchmarks/:
 //   K4  dev_pallas_probe.py::_kernel_b   (fused_b)   At layout
 //   K5  dev_tpu_probe2.py::_kernel_b2    (fused_b2)  At layout, m padded to 8
-//   K6  dev_tpu_probe2.py::_kernel_a2    (fused_a2)  A layout, m padded to 8
 // Each sums, over one program of B dense LMI cones, from A (B, m, n, n), W
 // and C (B, n, n):
 //
-//   K3, K6:  G_vu = tr(A_v W A_u W)       AW_v = tr(A_v W)
-//            AQc_v = tr(C W A_v W)        wc = tr(C W)      cqc = tr(C W C W)
-//   K4, K5:  G_vu = tr(A_v W A_u^T W^T), and the same AW, AQc, wc and cqc.
+//   G_vu = tr(A_v W A_u^T W^T)   AW_v = tr(A_v W)   AQc_v = tr(C W A_v W)
+//   wc = tr(C W)                 cqc = tr(C W C W)
 //
-// The two G agree where A_v and W are symmetric, as in the probes' own
-// inputs, and differ elsewhere; each kernel keeps its TPU kernel's function
-// for any input and assumes no symmetry of A, W or C.  The wrappers are in
-// conex_tpu_torch/benchmarks/dev_pallas_probe.py and dev_tpu_probe2.py.
+// That G is the oracle's tr(A_v W A_u W) where A_v and W are symmetric, as
+// in the probes' own inputs, and differs elsewhere; the kernels keep their
+// TPU kernels' function for any input and assume no symmetry of A, W or C.
+// The wrappers are in conex_tpu_torch/benchmarks/dev_pallas_probe.py and
+// dev_tpu_probe2.py.
 //
-// ---- K3, K6 ----------------------------------------------------------------
+// The A-layout probes K3 (dev_pallas_probe.py::_kernel_a, fused_a) and K6
+// (dev_tpu_probe2.py::_kernel_a2, fused_a2) have no kernel here.  They
+// compute K1's function, tr(A_v W A_u W) and the same four other outputs,
+// for any input, and take K1's layout: their A (B, m, n, n) is K1's
+// (S, Bc, m, n, n) with S = 1, Bc = B, a view with no copy.  K6's padding
+// of m to 8 changes no sum.  So both run csrc/schur.cu's kernels (K1's
+// tensor-core panel, paired-block Gram and fixed-order reduce) under
+// schur_plan(1, B, m, n, ...): dev_pallas_probe.py::launch_a.
 //
-// C W is carried as operator number m beside the A_v, so every output is an
-// entry or a trace of one extended (m+1) x (m+1) Gram matrix E: G_vu = E_vu,
-// AQc_v = E_vm, cqc = E_mm, AW_v and wc the traces of the panels.  Three
-// launches:
-//   1. panel: the TPU kernel's one product A.reshape(m n, n) @ W, here over
-//      (m+1) n rows whose last n are C, into P (B, m+1, n, n), and the same
-//      tile transposed (the TPU kernel's minor-dims swap) into PT;
-//   2. gram: one block per (cone, 64 x 64 tile of E) takes the depth-n^2 sum
-//      E_vu = sum_{i,k} P[v,i,k] PT[u,i,k] of its cone and the traces, and
-//      writes them to a partial buffer part (B, (m+1)(m+2));
-//   3. reduce: one thread per output sums the B partials in cone order.
-// K6 is K3 with the TPU kernel's padding of m to 8: the template parameter
-// MPAD rounds the live rows of each Gram tile up to a multiple of 8 (56 of
-// 64 at m = 50), and the warps past them skip the product.  The panel
-// reads A once per 64-column tile of the product, twice at n = 100.  At the
-// probe shape (B = 256, m = 50, n = 100, f32) the work is 26.1 GFLOP of
-// panel products and 6.8 GFLOP for one triangle of the symmetric E: 0.49 ms
-// at the 67 TFLOP/s of the CUDA cores, where these products run, from
-// shared memory with a 4 x 4 register tile per thread; both panels go
-// through device memory.  Every multiply-add is an explicit fmaf / fma
-// (madd), which the library's -fmad=false leaves fused.
-//
-// ---- K4, K5 ----------------------------------------------------------------
+// ---- K4, K5: E = sum_b Y_b X_b^T over regrouped products --------------------
 //
 // The TPU kernel forms Pb[i,v,k] = (A_v W)[i,k] and Rb[i,u,k] = (W A_u)[i,k]
 // from At (B, n, m, n) and sums G_vu = sum_{i,k} Pb[i,v,k] Rb[i,u,k].  The
@@ -80,7 +63,6 @@
 // K5 is K4.  Its TPU kernel pads m to 8 and n to 128 for Mosaic's (8, 128)
 // tiling; zero padding changes no sum, and the mma tiles (16 x 8) already
 // round every edge, so K5's wrapper launches these same kernels.
-// gram_kernel's MPAD serves K6.
 //
 // What bounds K4 and K5.  Their function needs two n^3 products per
 // operator and the whole of E: 4 (m+1) n^3 B + 2 (m^2 + 2m + 2) n^2 B =
@@ -100,264 +82,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16 threads, each owning 4 x 4 outputs
-constexpr int TT = 64;         // output tile edge of every product
-constexpr int PK = 16;         // panel products: depth of one staged slice
-constexpr int GI = 2;          // Gram: one stage holds GI x GK (i, k) pairs
-constexpr int GK = 8;
-constexpr int GL = GI * GK;
-// Shared memory of one block, in elements: the two staged operand slices,
-// or the transposed output tile of the A-layout panel.
-constexpr int kSmem = TT * (TT + 1) > PK * (2 * TT + 1) ? TT * (TT + 1)
-                                                        : PK * (2 * TT + 1);
-static_assert(GL == PK, "the Gram and panel stages share one buffer shape");
-
-__device__ __forceinline__ float madd(float a, float b, float c) {
-  return fmaf(a, b, c);
-}
-__device__ __forceinline__ double madd(double a, double b, double c) {
-  return fma(a, b, c);
-}
-
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-// Thread (tx, ty) owns rows 4 ty .. 4 ty + 3 and columns tx + 16 p of a
-// tile, so warp w owns rows 8 w .. 8 w + 7.
-template <typename T>
-__device__ __forceinline__ void zero(T (&acc)[4][4]) {
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-#pragma unroll
-    for (int p = 0; p < 4; ++p) acc[q][p] = T(0);
-}
-
-// acc += one staged slice: Xs[l][row] times Ys[l][col] over l < depth.
-template <typename T>
-__device__ __forceinline__ void mac_slice(T (&acc)[4][4], const T* Xs,
-                                          const T* Ys, int depth) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll 8
-  for (int l = 0; l < depth; ++l) {
-    T a[4], b[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) a[q] = Xs[l * (TT + 1) + 4 * ty + q];
-#pragma unroll
-    for (int p = 0; p < 4; ++p) b[p] = Ys[l * TT + tx + 16 * p];
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-#pragma unroll
-      for (int p = 0; p < 4; ++p) acc[q][p] = madd(a[q], b[p], acc[q][p]);
-  }
-}
-
-// acc = the (r0, c0) tile of the product X Y, X (M x K) and Y (K x N),
-// whose entries are x(r, k) and y(k, c); the loaders are called only
-// inside the bounds.
-template <typename T, typename LX, typename LY>
-__device__ void product_tile(T (&acc)[4][4], T* smem, int M, int N, int K,
-                             int r0, int c0, LX x, LY y) {
-  T* Xs = smem;                   // [PK][TT + 1], k-major
-  T* Ys = smem + PK * (TT + 1);   // [PK][TT]
-  const int tid = threadIdx.x;
-  zero(acc);
-  for (int k0 = 0; k0 < K; k0 += PK) {
-    for (int idx = tid; idx < TT * PK; idx += kThreads) {
-      const int kk = idx % PK, rr = idx / PK;
-      const int r = r0 + rr, k = k0 + kk;
-      Xs[kk * (TT + 1) + rr] = (r < M && k < K) ? x(r, k) : T(0);
-    }
-    for (int idx = tid; idx < PK * TT; idx += kThreads) {
-      const int cc = idx % TT, kk = idx / TT;
-      const int c = c0 + cc, k = k0 + kk;
-      Ys[kk * TT + cc] = (k < K && c < N) ? y(k, c) : T(0);
-    }
-    __syncthreads();
-    mac_slice(acc, Xs, Ys, PK);
-    __syncthreads();
-  }
-}
-
-// Calls st(r, c, value) for each entry of the (r0, c0) tile inside M x N.
-template <typename T, typename ST>
-__device__ __forceinline__ void store_tile(const T (&acc)[4][4], int M, int N,
-                                           int r0, int c0, ST st) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      const int r = r0 + 4 * ty + q, c = c0 + tx + 16 * p;
-      if (r < M && c < N) st(r, c, acc[q][p]);
-    }
-}
-
-// A layout.  Panel P[b] = the ((m+1) n) x n product whose first m n rows
-// are A[b].reshape(m n, n) and last n rows C[b], times W[b]; PT[b, v] =
-// P[b, v]^T.  grid: (tiles of the product, B).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-panel_a_kernel(const T* __restrict__ A, const T* __restrict__ W,
-               const T* __restrict__ C, T* __restrict__ P,
-               T* __restrict__ PT, int m, int n) {
-  __shared__ T smem[kSmem];
-  const int64_t b = blockIdx.y;
-  const int64_t nn = int64_t(n) * n;
-  const int tiles_c = cdiv(n, TT);
-  const int r0 = (blockIdx.x / tiles_c) * TT, c0 = (blockIdx.x % tiles_c) * TT;
-  const int mn = m * n, M = mn + n;
-  const T* Ab = A + b * m * nn;
-  const T* Cb = C + b * nn;
-  const T* Wb = W + b * nn;
-  T* Pb = P + b * (m + 1) * nn;
-  T* PTb = PT + b * (m + 1) * nn;
-
-  T acc[4][4];
-  product_tile(
-      acc, smem, M, n, n, r0, c0,
-      [&](int r, int k) {
-        return r < mn ? Ab[int64_t(r) * n + k] : Cb[int64_t(r - mn) * n + k];
-      },
-      [&](int k, int c) { return Wb[int64_t(k) * n + c]; });
-  store_tile(acc, M, n, r0, c0,
-             [&](int r, int c, T v) { Pb[int64_t(r) * n + c] = v; });
-
-  // The transpose goes through shared memory, so that a warp writes
-  // neighbouring i of one row of PT[b, v].
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-#pragma unroll
-    for (int p = 0; p < 4; ++p)
-      smem[(tx + 16 * p) * (TT + 1) + 4 * ty + q] = acc[q][p];
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < TT * TT; idx += kThreads) {
-    const int rr = idx % TT, cc = idx / TT;
-    const int r = r0 + rr, c = c0 + cc;
-    if (r < M && c < n) {
-      const int v = r / n, i = r % n;
-      PTb[v * nn + int64_t(c) * n + i] = smem[cc * (TT + 1) + rr];
-    }
-  }
-}
-
-
-// One block per (cone b, tile (v0, u0) of E): E_vu = sum_{i,k} X[v,i,k]
-// Y[u,i,k] over the cone, where entry (v, i, k) of a panel lies at
-// v sv + i si + k, and the traces sum_i X[v,i,i] in the tile's first
-// column of blocks; written to part[b].  grid: (tiles_g^2, B).
-template <typename T, int MPAD>
-__global__ void __launch_bounds__(kThreads)
-gram_kernel(const T* __restrict__ X, const T* __restrict__ Y,
-            T* __restrict__ part, int m, int n, int64_t sv, int64_t si) {
-  __shared__ T smem[kSmem];
-  const int64_t b = blockIdx.y;
-  const int m1 = m + 1;
-  const int tiles_g = cdiv(m1, TT);
-  const int v0 = (blockIdx.x / tiles_g) * TT, u0 = (blockIdx.x % tiles_g) * TT;
-  const int64_t cone = int64_t(m1) * n * n;
-  const T* Xb = X + b * cone;
-  const T* Yb = Y + b * cone;
-  T* pb = part + b * (int64_t(m1) * m1 + m1);
-  // MPAD > 1: the live rows of the tile rounded up to a multiple of MPAD;
-  // a warp whose eight rows all lie past them skips the product.
-  const int live = MPAD > 1 ? min(TT, cdiv(m1 - v0, MPAD) * MPAD) : TT;
-  const bool active = 8 * (threadIdx.x / 32) < live;
-
-  T* Xs = smem;                  // [GL][TT + 1]
-  T* Ys = smem + GL * (TT + 1);  // [GL][TT]
-  const int tid = threadIdx.x;
-  T acc[4][4];
-  zero(acc);
-  for (int i0 = 0; i0 < n; i0 += GI) {
-    for (int k0 = 0; k0 < n; k0 += GK) {
-      for (int idx = tid; idx < TT * GL; idx += kThreads) {
-        const int kk = idx % GK, ii = (idx / GK) % GI, r = idx / GL;
-        const int i = i0 + ii, k = k0 + kk;
-        const bool in = i < n && k < n;
-        const int v = v0 + r, u = u0 + r;
-        Xs[(ii * GK + kk) * (TT + 1) + r] =
-            (in && v < m1) ? Xb[v * sv + i * si + k] : T(0);
-        Ys[(ii * GK + kk) * TT + r] =
-            (in && u < m1) ? Yb[u * sv + i * si + k] : T(0);
-      }
-      __syncthreads();
-      if (active) mac_slice(acc, Xs, Ys, GL);
-      __syncthreads();
-    }
-  }
-  store_tile(acc, m1, m1, v0, u0,
-             [&](int v, int u, T e) { pb[int64_t(v) * m1 + u] = e; });
-
-  if (u0 == 0 && tid < TT) {
-    const int v = v0 + tid;
-    if (v < m1) {
-      T t = T(0);
-      for (int i = 0; i < n; ++i) t += Xb[v * sv + i * (si + 1)];
-      pb[int64_t(m1) * m1 + v] = t;
-    }
-  }
-}
-
-// out[e] = sum over cones b, in order, of part[b] at e's entry of E or of
-// the traces.  grid: enough threads for m^2 + 2 m + 2 outputs.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-reduce_kernel(const T* __restrict__ part, int B, int m, T* __restrict__ G,
-              T* __restrict__ AW, T* __restrict__ AQc, T* __restrict__ wc,
-              T* __restrict__ cqc) {
-  const int e = blockIdx.x * kThreads + threadIdx.x;
-  const int m1 = m + 1, mm = m * m;
-  const int64_t stride = int64_t(m1) * m1 + m1;
-  const int64_t tr = int64_t(m1) * m1;  // the traces follow E
-  int64_t src;
-  T* dst;
-  if (e < mm) {
-    src = int64_t(e / m) * m1 + e % m;
-    dst = G + e;
-  } else if (e < mm + m) {
-    src = tr + (e - mm);
-    dst = AW + (e - mm);
-  } else if (e < mm + 2 * m) {
-    src = int64_t(e - mm - m) * m1 + m;
-    dst = AQc + (e - mm - m);
-  } else if (e == mm + 2 * m) {
-    src = tr + m;
-    dst = wc;
-  } else if (e == mm + 2 * m + 1) {
-    src = int64_t(m) * m1 + m;
-    dst = cqc;
-  } else {
-    return;
-  }
-  T s = T(0);
-  for (int b = 0; b < B; ++b) s += part[b * stride + src];
-  *dst = s;
-}
-
-// K3 and K6: panel, Gram, reduce.
-template <typename T, int MPAD>
-int launch(const T* A, const T* W, const T* C, T* X, T* Y, T* part, T* G,
-           T* AW, T* AQc, T* wc, T* cqc, int B, int m, int n,
-           cudaStream_t stream) {
-  const int tiles = cdiv((m + 1) * n, TT) * cdiv(n, TT);
-  panel_a_kernel<T><<<dim3(tiles, B), kThreads, 0, stream>>>(A, W, C, X, Y,
-                                                              m, n);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles_g = cdiv(m + 1, TT);
-  gram_kernel<T, MPAD><<<dim3(tiles_g * tiles_g, B), kThreads, 0, stream>>>(
-      X, Y, part, m, n, int64_t(n) * n, n);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int outs = m * m + 2 * m + 2;
-  reduce_kernel<T><<<cdiv(outs, kThreads), kThreads, 0, stream>>>(
-      part, B, m, G, AW, AQc, wc, cqc);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ===========================================================================
-// K4, K5: E = sum_b Y_b X_b^T over the regrouped products (see the header)
-// ===========================================================================
 
 #include "mma.cuh"
 
@@ -1034,27 +759,10 @@ int dispatch_at(const T* A, const T* W, const T* C, T* Y, T* Tb, T* part,
 
 }  // namespace
 
-// K3 and K6.  Shapes: A (B, m, n, n), W and C (B, n, n); scratch X and Y
-// (B, m+1, n, n) elements each and part (B, (m+1)(m+2)); outputs G (m, m),
-// AW and AQc (m), wc and cqc (one element).  All contiguous on the current
-// device.  Returns cudaGetLastError() after the last launch, or after the
-// first that failed.
-#define CONEX_PROBE_ENTRY(NAME, T, MPAD)                                      \
-  extern "C" int NAME(const T* A, const T* W, const T* C, T* X, T* Y,         \
-                      T* part, T* G, T* AW, T* AQc, T* wc, T* cqc, int B,     \
-                      int m, int n, void* stream) {                           \
-    return launch<T, MPAD>(A, W, C, X, Y, part, G, AW, AQc, wc, cqc, B, m, n, \
-                           static_cast<cudaStream_t>(stream));                \
-  }
-
-CONEX_PROBE_ENTRY(conex_probe_a_f32, float, 1)    // K3
-CONEX_PROBE_ENTRY(conex_probe_a_f64, double, 1)
-CONEX_PROBE_ENTRY(conex_probe_a2_f32, float, 8)   // K6
-CONEX_PROBE_ENTRY(conex_probe_a2_f64, double, 8)
-
 // K4 and K5.  Shapes: A (B, m, n, n), W and C (B, n, n); scratch Y (Q, m+2,
 // n, n), Tb (Q, m+1, n, n) on the device route (else unused) and part
-// (B D, (m+2)(m+1)); outputs as K3's.  Q cones per chunk, D depth chunks of
+// (B D, (m+2)(m+1)); outputs G (m, m), AW and AQc (m), wc and cqc (one
+// element).  All contiguous on the current device.  Q cones per chunk, D depth chunks of
 // SC slabs, route 0 (shared) or 1 (device), and opb operators per block
 // on the shared route: dev_pallas_probe.py::probe_at_plan.  Returns
 // cudaErrorInvalidValue for a plan that does not fit this file's layout or

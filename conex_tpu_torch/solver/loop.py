@@ -170,6 +170,34 @@ def _identity_all(blocks, dtype):
     return tuple(blk.identity_state(dtype) for blk in blocks)
 
 
+def _mu_line_search(blocks, ws, fac, config, AW, AQc_s, b_s_vec, c_scaling):
+    """reference: ComputeMuFromLineSearch, cone_program.cc:118-160.  Per
+    scenario: the largest admissible k of the segment from y0 to y1, or
+    -1 where a block fails (a block without line search always does,
+    reference constraint.h:24-28) or the intervals do not meet."""
+    refine = config.iterative_refinement_iterations
+    mode = config.kkt_solver
+    y0 = kkt.solve(fac, -2.0 * AW, mode, refine)
+    y1 = kkt.solve(fac, AQc_s + b_s_vec - 2.0 * AW, mode, refine)
+    lower = torch.full_like(c_scaling, -float("inf"))
+    upper = torch.full_like(c_scaling, float("inf"))
+    fail = torch.zeros(c_scaling.shape, dtype=torch.bool, device=c_scaling.device)
+    for blk, w in zip(blocks, ws):
+        if not getattr(blk, "supports_line_search", False):
+            fail = torch.ones_like(fail)
+            continue
+        lo, up, f = blk.line_search(
+            w, local_vars(y0, blk.vars_, blk.num_vars),
+            local_vars(y1, blk.vars_, blk.num_vars), 0.0, c_scaling,
+            config.dinf_upper_bound,
+        )
+        lower = torch.maximum(lower, lo)
+        upper = torch.minimum(upper, up)
+        fail = fail | f
+    fail = fail | (lower > upper)
+    return torch.where(fail, torch.full_like(upper, -1.0), upper)
+
+
 def _mu_divergence(blocks, ws, fac, config, AQc_s, b_s_vec, c_scaling, rank_k):
     """reference: ComputeMuFromDivergence, cone_program.cc:173-214."""
     ydiv = kkt.solve(
@@ -195,8 +223,6 @@ def _check_supported(blocks, eq_blocks, config: SolverConfig):
         )
     if eq_blocks:
         raise not_ported("equality constraints", "10")
-    if config.enable_line_search:
-        raise not_ported("the line-search mu update", "8")
     if any(blk.vars_ is not None for blk in blocks):
         raise not_ported("sparse variable subsets", "13")
 
@@ -307,9 +333,15 @@ def _solve_loop(blocks, b, init_ws, init_scalars, config: SolverConfig):
         b_s_vec = b * b_scaling[:, None]
 
         # --- Mu update (cone_program.cc:374-403), branch-free ---
-        temp = _mu_divergence(
-            blocks, s.ws, fac, config, AQc_s, b_s_vec, c_scaling, rank_k
-        )
+        if config.enable_line_search:
+            temp = _mu_line_search(
+                blocks, s.ws, fac, config, AW, AQc_s, b_s_vec, c_scaling
+            )
+            temp = torch.where(temp < 0, s.k, temp)
+        else:
+            temp = _mu_divergence(
+                blocks, s.ws, fac, config, AQc_s, b_s_vec, c_scaling, rank_k
+            )
         k_cand = torch.where(temp > 0, temp, s.k * 0.5)
 
         # --- Numerical-floor latch (see SolverConfig) ---

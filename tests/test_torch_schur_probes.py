@@ -23,6 +23,12 @@ K3/K6 compute the oracle's tr(A_v W A_u W), K4/K5 their TPU kernels'
 tr(A_v W A_u^T W^T), which the K4/K5 kernels regroup (held in f64 at
 1e-12 by a test-local einsum of that regrouping).
 
+K3 and K6 have no kernels of their own: they run K1's (csrc/schur.cu) on
+views of their inputs as one program of B cones.  The tests hold K1's
+plain version on that view to their plain versions (f64, 1e-12), K1's
+plan there to cover every cone, Gram tile and depth unit once, and their
+wrappers to hand K1's launcher the views and that plan.
+
 The CUDA kernels are held against the plain versions by the ``gpu`` test
 below and by chip_smoke.py phase 3c on the card.
 """
@@ -47,6 +53,7 @@ from jax.experimental.pallas import tpu as pltpu
 from conex_tpu_torch import convert
 from conex_tpu_torch.benchmarks import dev_pallas_probe as tp1
 from conex_tpu_torch.benchmarks import dev_tpu_probe2 as tp2
+from conex_tpu_torch.cones import psd_schur
 
 REPO = Path(__file__).resolve().parent.parent
 SHAPES = [(3, 5, 7), (3, 5, 13)]
@@ -345,6 +352,90 @@ def test_at_plan_emulated_gives_the_at_layout_function(shape, route):
     want = tp1.fused_b_plain(*map(convert.tensor, (A, w, C)))
     for g, r in zip(got, want):
         assert _rel(g, r.numpy()) <= 1e-12
+
+
+# K3 and K6 run K1's kernels: their function is K1's plain version on the
+# view S = 1, Bc = B.  (2, 70, 130) and (4, 64, 16) give m + 1 > 64: two
+# Gram tiles.
+A_LAYOUT_SHAPES = [(3, 5, 13), (2, 70, 130), (4, 64, 16)]
+
+
+@pytest.mark.parametrize("inputs", ["probe", "nonsymmetric"])
+@pytest.mark.parametrize("shape", A_LAYOUT_SHAPES)
+@pytest.mark.parametrize("variant", ["a", "a2"])
+def test_k1_plain_on_one_program_is_the_a_layout_function(variant, shape, inputs):
+    make = _inputs if inputs == "probe" else _nonsymmetric
+    A, w, C = map(convert.tensor, make(shape, np.float64))
+    got = psd_schur.schur_plain(A[None], w[None], C[None])
+    want = _port(variant)[1](A, w, C)
+    for g, r in zip(got, want):
+        assert g[0].shape == r.shape
+        assert _rel(g[0].numpy(), r.numpy()) <= 1e-12
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("shape", [(256, 50, 100), (2, 70, 130)])
+def test_a_plan_covers_every_cone_tile_and_depth_unit_once(shape, itemsize):
+    B, m, n = shape
+    plan = tp1.probe_a_plan(B, m, n, itemsize)
+    assert plan == psd_schur.schur_plan(1, B, m, n, itemsize)
+    plan.check()
+    tiles = -(-(m + 1) // psd_schur.GRAM_TILE)
+    blocks = plan.gram_blocks()
+    want = {(0, b, tv, tu, d) for b in range(B) for tv in range(tiles)
+            for tu in range(tiles) for d in range(plan.depth_chunks)}
+    assert len(blocks) == len(set(blocks)) == len(want)
+    assert set(blocks) == want
+    nb = -(-n // psd_schur.UNIT)
+    units = [u for d in range(plan.depth_chunks) for u in plan.depth_units(d)]
+    assert units == [(i, k) for i in range(nb) for k in range(i, nb)]
+    assert sum(plan.chunk_cones(c)[1] for c in range(plan.chunks)) == B
+    assert (plan.cones_per_chunk == 1
+            or math.prod(plan.scratch_shape) * itemsize <= psd_schur.SCRATCH_BYTES)
+
+
+def test_a_plan_at_the_probe_shape():
+    """One chunk of 256 panels (0.57 GB in f32), two depth chunks, three
+    launches and 5.4 MB of partials, where the old kernels held X and Y
+    (1.04 GB)."""
+    plan = tp1.probe_a_plan(256, 50, 100, 4)
+    assert (plan.chunks, plan.depth_chunks, plan.launches) == (1, 2, 3)
+    assert plan.scratch_shape == (256, 51, 104, 104)
+    assert plan.partial_shape == (512, 2652)
+    assert tp1.probe_a_plan(256, 50, 100, 8).chunks == 2  # 1.13 GB of f64 panel
+
+
+@pytest.mark.parametrize("variant", ["a", "a2"])
+def test_a_layout_kernels_launch_k1_on_views(variant, monkeypatch):
+    """K3 and K6 hand K1's launcher views of their inputs (no copy) and
+    schur_plan(1, B, m, n, ...), squeeze its outputs and count their own
+    launch, not K1's.  The launcher is replaced by one that records its
+    arguments and returns K1's plain version."""
+    calls = []
+
+    def fake_launch(A, W, C, plan):
+        calls.append((A, W, C, plan))
+        return psd_schur.schur_plain(A, W, C)
+
+    monkeypatch.setattr(psd_schur, "launch_schur", fake_launch)
+    for module in (tp1, tp2):
+        monkeypatch.setattr(module, "check_kernel_inputs", tp1.check_shapes)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: types.SimpleNamespace(multi_processor_count=132))
+    _, plain, kernel = _port(variant)
+    A, w, C = map(convert.tensor, _nonsymmetric((3, 5, 13), np.float64))
+    before, k1_before = kernel.launches, psd_schur.schur_kernel.launches
+    got = kernel(A, w, C)
+    assert kernel.launches == before + 1
+    assert psd_schur.schur_kernel.launches == k1_before
+    (A5, W4, C4, plan), = calls
+    assert A5.shape == (1, 3, 5, 13, 13) and W4.shape == C4.shape == (1, 3, 13, 13)
+    assert (A5.data_ptr(), W4.data_ptr(), C4.data_ptr()) == (
+        A.data_ptr(), w.data_ptr(), C.data_ptr())
+    assert plan == psd_schur.schur_plan(1, 3, 5, 13, 8, 132)
+    for g, r in zip(got, plain(A, w, C)):
+        assert g.shape == r.shape
+        assert _rel(g.numpy(), r.numpy()) <= 1e-12
 
 
 def _chip_smoke():

@@ -263,8 +263,11 @@ def test_unsupported_options_raise_naming_roadmap_items():
             convert.scalars(_cold_scalars(1)))
     with pytest.raises(NotImplementedError, match="item 14"):
         ct.solve_scenarios(*args, ct.SolverConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ct.solve_scenarios(*args, ct.SolverConfig(enable_line_search=True))
+    # The line-search mu update is ported: on an LMI block, which has no
+    # line search, it fails every mu update, as in the JAX package.
+    rj, rt = _run_both(A, C, b, _identity_ws(1, 1, 3), _cold_scalars(1),
+                       enable_line_search=True, max_iterations=6)
+    _assert_same_trajectory(rj, rt)
     with pytest.raises(NotImplementedError, match="item 10"):
         ct.solve_scenarios(*args, ct.SolverConfig(kkt_solver=ct.KKT_SOLVER_LDLT))
     with pytest.raises(ValueError, match="schur_precision"):

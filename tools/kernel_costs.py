@@ -1,8 +1,8 @@
 """What the port's kernel build costs, and where the paths' time goes.
 
-    python3 tools/kernel_costs.py [build] [fma] [profile] [probes] [sdp] [k1] [k2]
+    python3 tools/kernel_costs.py [build] [fma] [profile] [probes] [sdp] [k1] [k2] [lp]
 
-Needs one CUDA card and nvcc; imports nothing of JAX.  Seven parts (all of
+Needs one CUDA card and nvcc; imports nothing of JAX.  Eight parts (all of
 them when none is named), each printing its own lines:
 
 1. build: the nvcc wall time of the library as ``conex_tpu_torch._build``
@@ -25,9 +25,11 @@ them when none is named), each printing its own lines:
 4. probes: the same profile of one call of each Schur probe kernel
    (K3-K6), of its plain version and of K1 as one program (S = 1, Bc =
    256), on the probes' inputs at B = 256, m = 50, n = 100, f32: where
-   each call's time goes, launch by launch (K4 and K5: sandwich, Gram,
-   reduce); then K4 on its two routes in turns, T kept in shared memory
-   against T written to device memory (profiled too), and K4 under
+   each call's time goes, launch by launch (K3 and K6: K1's panel, Gram
+   and reduce under K1's plan at S = 1, Bc = 256, printed; K4 and K5:
+   sandwich, Gram, reduce); then K4 on its two routes in turns, T kept
+   in shared memory against T written to device memory (profiled too),
+   and K4 under
    variants of csrc/schur_probes.cu built beside the product (one TF32
    pass, no products, two other warp units of the sandwich), each
    profiled with its error;
@@ -52,7 +54,11 @@ them when none is named), each printing its own lines:
    launch by launch; then the pick under variants of
    csrc/fused_socp.cu built beside the product (K2_VARIANTS: a stage's
    chains cut out, the sums not unrolled or in chunks of 8, the stage
-   functions out of line), in turns: where the time goes.
+   functions out of line), in turns: where the time goes;
+8. lp: the same profile of one solve of the LP path (chip_smoke.py phase
+   4c: bench_accuracy's 200 x 400 LP in f64) through Program and of the
+   batch of 64 through solve_scenarios, in both mu modes, with the
+   launches per iteration of the longest scenario.
 
 A run of all the parts holds the card for several minutes (part 2 builds
 the library twice); naming parts runs only those, so a question about one
@@ -261,6 +267,8 @@ def part_probes(device):
 
     B, m, n = chip_smoke.PROBE_SHAPE
     A, w, C = p1.probe_inputs(B, m, n, device)
+    log(f"[probes] K3 and K6 f32 run K1's kernels under "
+        f"{chip_smoke.a_plan_record(p1.probe_a_plan(B, m, n, 4), 4)}")
     for name, (plain, kernel) in chip_smoke.probe_variants().items():
         profile(f"{name} kernel", lambda: kernel(A, w, C))
         profile(f"{name}_plain", lambda: plain(A, w, C))
@@ -308,6 +316,34 @@ def part_sdp(device):
     profile("SDP main path, one solve of 30 iterations",
             lambda: solve_scenarios((blk,), (), b, init_ws, scalars, config),
             iterations=config.max_iterations, top=15)
+
+
+def part_lp(device):
+    import numpy as np
+    import torch
+
+    from conex_tpu_torch import Program, convert, solve_scenarios
+
+    m, n = chip_smoke.LP_SHAPE
+    A, b, c = chip_smoke.lp_instance(0)
+    S = chip_smoke.LP_BATCH
+    As, bs, cs = map(np.stack, zip(*(chip_smoke.lp_instance(s) for s in range(S))))
+    blk = convert.linear_cone(As, cs, device)
+    args = ((blk,), (), convert.tensor(bs, device),
+            (torch.ones((S, n), dtype=torch.float64, device=device),),
+            convert.scalars(dict(k=np.zeros(S), b_scaling=np.ones(S),
+                                 c_scaling=np.ones(S)), device))
+    for line_search in (False, True):
+        mode = "line search" if line_search else "divergence"
+        config = chip_smoke.lp_config(line_search)
+        prog = Program(m, device=device)
+        prog.add_linear_constraint(A, c)
+        iters = prog.solve(b, config).num_iterations
+        profile(f"LP {m} x {n} f64 through Program, {mode}",
+                lambda: prog.solve(b, config), iterations=iters, top=10)
+        iters = int(solve_scenarios(*args, config).num_iterations.max())
+        profile(f"LP batch of {S} f64 through solve_scenarios, {mode}",
+                lambda: solve_scenarios(*args, config), iterations=iters, top=10)
 
 
 # (scratch MiB, Gram blocks per SM): chunks that stay in the 50 MB L2
@@ -556,7 +592,7 @@ def part_k2(device):
 
 PARTS = {"build": lambda device: part_build(), "fma": part_fma,
          "profile": part_profile, "probes": part_probes, "sdp": part_sdp,
-         "k1": part_k1, "k2": part_k2}
+         "k1": part_k1, "k2": part_k2, "lp": part_lp}
 
 
 def main(argv=None):
