@@ -75,6 +75,31 @@ Phases, each printing its own lines; any failure exits non-zero:
    <= 1e-7 and dual residual <= 1e-10 (bench_accuracy.py's measures), y
    within 1e-8 relative of the same solve on the CPU in as many
    iterations; the wall per solve (best of 3) and Newton it/s;
+4d. the equality-constrained SDP through K1 and the LDLT: bench.py's SDP
+   shape (S = 256 scenarios, one LMI each, n = 100, m = 50) plus p = 10
+   equality rows per scenario (tests/test_equality.py::
+   test_equality_with_sdp's recipe at n = 100, scenario s drawn with seed
+   s), f64, kkt_solver LDLT (n_kkt = 60), at most 100 iterations, through
+   solve_scenarios: every scenario solved, ||Aeq y - beq||_inf <= 1e-8 (1
+   + ||beq||_inf), lambda_min(C - sum y_i A_i) >= -1e-7, scenarios 0-3
+   solved again on the CPU with b'y within 1e-7 relative and iteration
+   counts within the final-centering steps, and K1 launched once per loop
+   pass; the wall per solve (best of 3), Newton it/s, the launches of one
+   LDLT factor and of one profiled solve and the device's busy share;
+4e. QPs at the LP path's width: tests/test_qp.py::qp_with_solution at
+   n = 200 and 400 inequalities, f64, its QP_CONFIG with QP_ITERATIONS
+   iterations, as one Program (seed 0) against the CPU (y to 1e-7
+   relative, the iteration count within 5 of the range the CPU spans
+   under one or two roundings of b; y within
+   1e-5 of the known x_opt, the slack within 1e-4 of its known value) and
+   as a batch of 64 (seeds 0-63) through solve_scenarios: every solve
+   solved, y and slack within QP_BATCH_Y_LIMIT and QP_BATCH_SLACK_LIMIT
+   (the JAX package reaches 1.7e-5 and 1.3e-4 on seed 11); seed 0 again through
+   add_quadratic_cost_epigraph as Program(201) (a Q-weighted Lorentz cone,
+   tests/test_quadratic_cone.py's configuration with 100 iterations
+   allowed, EPIGRAPH_ITERATIONS), y within 1e-7 of x_opt;
+   the walls, Newton it/s, the batch's launches and busy share; K1 and K2
+   must not launch;
 5. a known answer: a small f64 SDP through Program(device="cuda"), against
    lambda_min(C) and the CPU solve;
 5b. a known SOC answer through Program(device="cuda"): max b'y s.t.
@@ -83,6 +108,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    y1 + 2 y2, optimum (1, 3), b'y = 7) on the card against the CPU, then
    a warmstart resume after save_state / load_state (at most 3
    iterations, as on the CPU);
+5d. the equality, QR and QP-guard tests of the JAX package on the card:
+   tests/test_equality.py's known optimum (against the CPU) and its KKT
+   instance (stationarity through get_dual_variable and get_equality_dual,
+   ||A'x + Aeq'lambda - b|| <= 1e-5), tests/test_failure_corpus.py's
+   rank-deficient LP (LLT fails, QR solves), and tests/test_qp.py's guard
+   (a quadratic cost without line search raises);
 6. the probe entry points: benchmarks/dev_pallas_probe.py's main at
    256,50,100 and dev_tpu_probe2.py's part2 through their twins in
    conex_tpu_torch/benchmarks, on the card in f32: each variant's kernel
@@ -92,7 +123,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    partials.
 
 The last lines are the kernels' JSON record (K2's and K3-K6's with their
-plans; with each kernel's bound:
+plans, K1's with its launches on phases 4 and 4d; with each kernel's bound:
 the larger of its operations over the peak rate of the units that do
 them and its bytes over 3.35 TB/s; every Schur kernel's products run on
 the tensor cores, three TF32 passes per f32 product at 495 TFLOP/s), the
@@ -147,6 +178,40 @@ LP_GAP_LIMIT = 1e-7
 LP_DUAL_LIMIT = 1e-10
 LP_Y_LIMIT = 1e-8
 LP_CENTERING_SPREAD = 5
+# The indefinite-KKT path (phases 4d, 4e, 5d).  4d: bench.py's SDP shape
+# (S scenarios, one LMI of order n over m variables) plus p equality rows
+# per scenario, tests/test_equality.py::test_equality_with_sdp's recipe at
+# order n (eq_sdp_instance), f64, LDLT; scenarios 0 to EQ_SDP_CPU - 1
+# solved again on the CPU.  4e: tests/test_qp.py's qp_with_solution at
+# bench_accuracy's size (n variables, num_ineqs inequalities), f64, its
+# QP_CONFIG with 100 iterations (qp_config), as one Program and as a
+# batch of QP_BATCH (scenario s drawn with seed s).
+EQ_SDP_SHAPE = (256, 100, 50, 10)  # S, n, m, p
+EQ_SDP_CPU = 4
+EQ_SDP_ITERATIONS = 100
+EQ_FEAS_LIMIT = 1e-8  # ||Aeq y - beq||_inf / (1 + ||beq||_inf)
+EQ_PSD_LIMIT = -1e-7  # lambda_min(C - sum_i y_i A_i)
+EQ_OBJ_LIMIT = 1e-7  # b'y, card against CPU, relative
+QP_SHAPE = (200, 400)  # n, num_ineqs
+QP_BATCH = 64
+# The JAX package on the CPU (tools/reference_runs.py qp) leaves seeds
+# unsolved at 100 and 200 iterations (4 and 2 of 64) and none at 300, and
+# reaches 1.651e-5 in y and 1.266e-4 in the slack on seed 11 (solved in 59
+# iterations); seed 0, the Program's, 6.5e-7 at most.  So the batch runs
+# 300 iterations and is held 6x above the reference's worst.
+QP_ITERATIONS = 300
+QP_Y_LIMIT = 1e-5  # the Program (seed 0): y against the known x_opt
+QP_SLACK_LIMIT = 1e-4  # the Program: A y + b against the known slack
+QP_BATCH_Y_LIMIT = 1e-4
+QP_BATCH_SLACK_LIMIT = 1e-3
+QP_CPU_LIMIT = 1e-7  # the Program's y, card against CPU, relative
+QP_EPIGRAPH_LIMIT = 1e-7  # the epigraph solve's y against x_opt
+# tests/test_quadratic_cone.py's epigraph solve allows 60 iterations.  At
+# n = 200 its count and accuracy move with one rounding of b: the JAX
+# package takes 43-50 iterations and ends 3.4e-10 to 6.1e-8 from x_opt
+# with b moved by up to 2 units of 2^-52 (tools/reference_runs.py qp).  So
+# 60 leaves little room, and the phase allows 100.
+EPIGRAPH_ITERATIONS = 100
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # float32 outside the tensor cores, TF32 and float64 on the tensor cores,
 # and device memory.
@@ -967,6 +1032,71 @@ def lp_instance(seed):
     return A, b, c
 
 
+def eq_sdp_instance(seed, n, m, p):
+    """tests/test_equality.py::test_equality_with_sdp's program at order n,
+    drawn from default_rng(seed): A_i = sym(U(-1,1)^{n x n}), C =
+    sym(U)/sqrt(n) + 3 I, X0 = U U^T / n + 0.1 I, Aeq = U(-1,1)^{p x m},
+    beq = Aeq (0.05 U(-1,1)^m / sqrt(m)), b = <A_i, X0> + Aeq^T U(-1,1)^p.
+    Returns As (m, n, n), C (n, n), Aeq (p, m), beq (p,), b (m,)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    M = rng.uniform(-1, 1, (m, n, n))
+    As = 0.5 * (M + np.swapaxes(M, 1, 2))
+    M = rng.uniform(-1, 1, (n, n))
+    C = 0.5 * (M + M.T) / np.sqrt(n) + 3.0 * np.eye(n)
+    X0 = rng.uniform(-1, 1, (n, n))
+    X0 = X0 @ X0.T / n + 0.1 * np.eye(n)
+    Aeq = rng.uniform(-1, 1, (p, m))
+    beq = Aeq @ (0.05 * rng.uniform(-1, 1, m) / np.sqrt(m))
+    b = np.einsum("vij,ij->v", As, X0) + Aeq.T @ rng.uniform(-1, 1, p)
+    return As, C, Aeq, beq, b
+
+
+def eq_sdp_config():
+    from conex_tpu_torch import KKT_SOLVER_LDLT, SolverConfig
+
+    return SolverConfig(kkt_solver=KKT_SOLVER_LDLT, max_iterations=EQ_SDP_ITERATIONS)
+
+
+def qp_with_solution(n, num_ineqs, rng):
+    """tests/test_qp.py::qp_with_solution (reference
+    quadratic_objective_test.cc:88-115): min 1/2 x'Wx + c'x s.t.
+    Ax + b >= 0, with the first n rows active.  Returns W, A, b, c, x_opt,
+    slack_opt."""
+    import numpy as np
+
+    size_active = n
+    optimal_slack = np.zeros(num_ineqs)
+    optimal_lambda = np.zeros(num_ineqs)
+    optimal_lambda[:size_active] = np.linspace(1, size_active, size_active)
+    optimal_slack[size_active:] = 1.0
+    optimal_x = rng.uniform(-1, 1, n)
+    W = np.eye(n)
+    A = rng.uniform(-1, 1, (num_ineqs, n))
+    b = optimal_slack - A @ optimal_x
+    c = A.T @ optimal_lambda - W @ optimal_x
+    return W, A, b, c, optimal_x, optimal_slack
+
+
+# tests/test_qp.py's QP_CONFIG with QP_ITERATIONS iterations (its 30
+# leave seed 0 unsolved at this size; see QP_ITERATIONS), as SolverConfig
+# fields, which both packages take.
+QP_CONFIG_FIELDS = dict(
+    enable_line_search=True, enable_rescaling=False,
+    initial_centering_steps_coldstart=0, inv_sqrt_mu_max=2e5,
+    max_iterations=QP_ITERATIONS, final_centering_tolerance=1.05,
+    final_centering_steps=0, kkt_error_tolerance=1e45, dinf_upper_bound=1.0,
+    prepare_dual_variables=True,
+)
+
+
+def qp_config():
+    from conex_tpu_torch import SolverConfig
+
+    return SolverConfig(**QP_CONFIG_FIELDS)
+
+
 def lp_config(line_search):
     """bench_accuracy.py:66-70, in either mu mode."""
     from conex_tpu_torch import SolverConfig
@@ -1197,6 +1327,379 @@ def phase_lp_known_answer(device):
     if not (res2.solved and res2.num_iterations <= 3
             and res2.num_iterations == res2_cpu.num_iterations and e_warm <= 1e-8):
         fail("the warmstart resume after save_state/load_state does not hold")
+
+
+# ---------------------------------------------------------------------------
+# The indefinite-KKT path: equality rows, quadratic costs and cones, LDLT, QR
+# ---------------------------------------------------------------------------
+
+LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                "cuLaunchKernelEx")
+
+
+def device_profile(fn):
+    """One call of ``fn`` under torch.profiler: (device-kernel ms, kernel
+    launch calls, the device kernels' profiler events).  A spin kernel
+    goes first and is left out of every count (the trace may miss the
+    first kernel launched in its window); a trace that holds fewer kernels
+    than launch calls is taken again, up to three times."""
+    import torch
+    from torch.autograd import DeviceType
+
+    def dev_us(e):  # the attribute's name differs between torch versions
+        if hasattr(e, "self_device_time_total"):
+            return e.self_device_time_total
+        return e.self_cuda_time_total
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for attempt in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            torch.cuda._sleep(1_000_000)
+            fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        kernels = [e for e in events
+                   if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
+        launches = sum(e.count for e in events if e.key in LAUNCH_CALLS) - 1
+        if sum(e.count for e in kernels) >= launches:
+            break
+        log(f"[profile] the trace holds fewer kernels than the {launches} launch "
+            "calls; tracing again")
+    device_ms = sum(dev_us(e) for e in kernels) / 1e3
+    kernels = sorted(kernels, key=dev_us, reverse=True)
+    return device_ms, launches, [(dev_us(e) / 1e3, e.count, e.key) for e in kernels]
+
+
+def best_wall(fn, reps=3):
+    """The least host wall time of ``reps`` calls, each ended by a
+    synchronize."""
+    import torch
+
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def eq_sdp_batch(seeds, n, m, p, device):
+    """solve_scenarios' arguments for the programs of eq_sdp_instance at
+    ``seeds`` on ``device``, and their numpy data (As, C, Aeq, beq, b)."""
+    import numpy as np
+
+    from conex_tpu_torch import convert
+    from conex_tpu_torch.cones.psd import make_psd_state
+
+    data = tuple(map(np.stack, zip(*(eq_sdp_instance(s, n, m, p) for s in seeds))))
+    As, C, Aeq, beq, b = data
+    S = len(seeds)
+    ws = make_psd_state(convert.tensor(np.broadcast_to(np.eye(n), (S, 1, n, n)), device))
+    args = ((convert.lmi_cone(As[:, None], C[:, None], device),),
+            (convert.equality_block(Aeq, beq, device),), convert.tensor(b, device),
+            (ws,), convert.scalars(dict(k=np.zeros(S), b_scaling=np.ones(S),
+                                        c_scaling=np.ones(S)), device))
+    return args, data
+
+
+def phase_eq_sdp(device):
+    """4d: S equality-constrained SDPs at bench.py's width through K1 and the
+    LDLT, f64; returns K1's launches in the solve."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from conex_tpu_torch import solve_scenarios
+    from conex_tpu_torch.cones import psd_schur
+    from conex_tpu_torch.parallel import fused_socp
+    from conex_tpu_torch.solver import kkt
+
+    S, n, m, p = EQ_SDP_SHAPE
+    config = eq_sdp_config()
+    t0 = time.perf_counter()
+    args, (As, C, Aeq, beq, b) = eq_sdp_batch(range(S), n, m, p, device)
+    log(f"[4d eq sdp] {S} programs (n={n}, m={m}, p={p}, f64) built in "
+        f"{time.perf_counter() - t0:.2f} s; n_kkt = {m + p}")
+    psd_schur.schur_kernel.launches = 0
+    fused_socp.solve_socp_kernel.launches = 0
+    t0 = time.perf_counter()
+    # One KKT factor per loop pass: the passes the loop ran.
+    with mock.patch.object(kkt, "factor", wraps=kkt.factor) as factor:
+        res = solve_scenarios(*args, config)
+        torch.cuda.synchronize()
+    passes = factor.call_count
+    first = time.perf_counter() - t0
+    launches = psd_schur.schur_kernel.launches
+    iters = res.num_iterations.cpu().numpy()
+    log(f"[4d eq sdp] first solve {first:.3f} s: iterations {iters.min()}-{iters.max()} "
+        f"(median {np.median(iters):.0f}), loop passes {passes}, K1 launches "
+        f"{launches}, K2 launches {fused_socp.solve_socp_kernel.launches}")
+    if fused_socp.solve_socp_kernel.launches:
+        fail("the fused SOCP kernel ran on the equality SDP path")
+    if not (launches == passes and iters.max() <= launches <= iters.max() + 1):
+        fail(f"K1 launched {launches} times in {passes} loop passes "
+             f"(most iterations {iters.max()}): not once per iteration")
+    solved = res.solved.cpu().numpy()
+    if not solved.all():
+        fail(f"4d: scenarios {np.flatnonzero(~solved).tolist()} not solved")
+    y = res.y.cpu().numpy()
+    feas = (np.abs(np.einsum("spm,sm->sp", Aeq, y) - beq).max(axis=1)
+            / (1.0 + np.abs(beq).max(axis=1)))
+    Ct = torch.from_numpy(C).to(device)
+    slack = Ct - torch.einsum("sv,svij->sij", res.y, torch.from_numpy(As).to(device))
+    lam = torch.linalg.eigvalsh(slack)[:, 0].cpu().numpy()
+    log(f"[4d eq sdp] all {S} solved; worst ||Aeq y - beq||_inf / (1 + ||beq||_inf) "
+        f"{feas.max():.3e} (limit {EQ_FEAS_LIMIT}), least lambda_min(C - sum y_i A_i) "
+        f"{lam.min():.3e} (limit {EQ_PSD_LIMIT})")
+    if not (feas.max() <= EQ_FEAS_LIMIT and lam.min() >= EQ_PSD_LIMIT):
+        fail("4d: an equality row or the LMI is broken at the solution")
+
+    # Scenarios 0 to EQ_SDP_CPU - 1 again on the CPU (the plain path).
+    cpu_args, _ = eq_sdp_batch(range(EQ_SDP_CPU), n, m, p, torch.device("cpu"))
+    t0 = time.perf_counter()
+    cpu = solve_scenarios(*cpu_args, config)
+    cpu_s = time.perf_counter() - t0
+    by = np.einsum("sm,sm->s", b[:EQ_SDP_CPU], y[:EQ_SDP_CPU])
+    by_cpu = np.einsum("sm,sm->s", b[:EQ_SDP_CPU], cpu.y.numpy())
+    d_obj = np.abs(by - by_cpu) / np.abs(by_cpu)
+    d_it = np.abs(iters[:EQ_SDP_CPU] - cpu.num_iterations.numpy())
+    log(f"[4d eq sdp] scenarios 0-{EQ_SDP_CPU - 1} on the CPU ({cpu_s:.1f} s): "
+        f"b'y card {by.tolist()}, CPU {by_cpu.tolist()}, relative differences "
+        f"{d_obj.tolist()} (limit {EQ_OBJ_LIMIT}); iterations card "
+        f"{iters[:EQ_SDP_CPU].tolist()}, CPU {cpu.num_iterations.tolist()} (spread "
+        f"limit {config.final_centering_steps})")
+    if not (cpu.solved.all() and d_obj.max() <= EQ_OBJ_LIMIT
+            and d_it.max() <= config.final_centering_steps):
+        fail("4d: the card and the CPU disagree")
+
+    wall = best_wall(lambda: solve_scenarios(*args, config))
+    total = int(iters.sum())
+    log(f"[4d eq sdp] wall per solve {wall * 1e3:.3f} ms (best of 3), Newton it/s "
+        f"{total / wall:.2f} ({total} iterations in {passes} passes)")
+    K = torch.zeros((S, m + p, m + p), dtype=torch.float64, device=device)
+    K[:, :m, :m] = torch.eye(m, dtype=torch.float64, device=device)
+    K[:, m:, :m] = torch.from_numpy(Aeq).to(device)
+    K[:, :m, m:] = K[:, m:, :m].transpose(1, 2)
+    ldlt_ms, ldlt_launches, _ = device_profile(lambda: kkt.factor(K, config.kkt_solver))
+    device_ms, solve_launches, top = device_profile(lambda: solve_scenarios(*args, config))
+    log(f"[4d eq sdp] one LDLT factor of the ({S}, {m + p}, {m + p}) KKT matrices: "
+        f"{ldlt_launches} launches, {ldlt_ms:.3f} ms of device time; one profiled "
+        f"solve: {solve_launches} launches ({solve_launches / passes:.1f} per "
+        f"pass), device-kernel time {device_ms:.3f} ms, busy "
+        f"{100 * device_ms / (wall * 1e3):.1f}% of the unprofiled wall")
+    for ms, count, key in top[:5]:
+        log(f"[4d eq sdp]   {ms:9.3f} ms x{count:<6} {key[:90]}")
+    return launches
+
+
+def qp_program(n, W, A, b, device, epigraph=False):
+    """The QP min 1/2 x'Wx + c'x s.t. Ax + b >= 0 as a Program on ``device``
+    (maximize -c'y - 1/2 y'Wy): a quadratic cost, or with ``epigraph`` the
+    cost's epigraph t >= 1/2 x'Wx over y = (x, t)."""
+    import numpy as np
+
+    from conex_tpu_torch import Program
+
+    if not epigraph:
+        prog = Program(n, device=device)
+        prog.add_quadratic_cost(W)
+        prog.add_linear_constraint(-A, b)
+        return prog
+    prog = Program(n + 1, device=device)
+    prog.add_quadratic_cost_epigraph(W, range(n), n)
+    prog.add_linear_constraint(np.hstack([-A, np.zeros((A.shape[0], 1))]), b)
+    return prog
+
+
+def phase_qp(device):
+    """4e: QPs at the LP path's width, f64: one Program against the CPU,
+    a batch of QP_BATCH, and the epigraph form of seed 0."""
+    import numpy as np
+    import torch
+
+    from conex_tpu_torch import SolverConfig, convert, solve_scenarios
+    from conex_tpu_torch.cones import psd_schur
+    from conex_tpu_torch.parallel import fused_socp
+
+    kernels = (psd_schur.schur_kernel, fused_socp.solve_socp_kernel)
+    for kernel in kernels:
+        kernel.launches = 0
+    n, ni = QP_SHAPE
+    config = qp_config()
+    W, A, b, c, x_opt, slack_opt = qp_with_solution(n, ni, np.random.default_rng(0))
+    out = {}
+    for where in ("card", "cpu"):
+        prog = qp_program(n, W, A, b, device if where == "card" else "cpu")
+        out[where] = (prog, prog.solve(-c, config))
+    (prog, res), (_, res_cpu) = out["card"], out["cpu"]
+    # The iteration count of this solve moves with one rounding: the CPU
+    # itself, with b moved by 1 or 2 units of 2^-52, ends anywhere in
+    # 36-57 iterations (tools/reference_runs.py qp shows the JAX package do
+    # the same).  So the card's count is held to the range of the CPU's
+    # under those roundings, widened by the five final-centering steps of
+    # the default configuration (LP_CENTERING_SPREAD).
+    cpu_counts = [res_cpu.num_iterations] + [
+        qp_program(n, W, A, b, "cpu").solve(-c * (1 + e * 2.0**-52), config).num_iterations
+        for e in (1, -1, 2, -2)]
+    low = min(cpu_counts) - LP_CENTERING_SPREAD
+    high = max(cpu_counts) + LP_CENTERING_SPREAD
+    e_y = float(np.abs(res.y - x_opt).max())
+    e_s = float(np.abs(A @ res.y + b - slack_opt).max())
+    e_cpu = float(np.linalg.norm(res.y - res_cpu.y) / np.linalg.norm(res_cpu.y))
+    wall = best_wall(lambda: prog.solve(-c, config))
+    log(f"[4e qp] Program, {n} vars x {ni} inequalities, f64: solved {res.solved} in "
+        f"{res.num_iterations} iterations (CPU {res_cpu.num_iterations}, solved "
+        f"{res_cpu.solved}; the CPU with b moved by 1, -1, 2, -2 units of 2^-52: "
+        f"{cpu_counts[1:]}, so a limit of {low}-{high}); |y - x_opt|_inf {e_y:.3e} "
+        f"(limit {QP_Y_LIMIT}), slack {e_s:.3e} (limit {QP_SLACK_LIMIT}), y vs CPU "
+        f"{e_cpu:.3e} (limit {QP_CPU_LIMIT}); wall per solve {wall * 1e3:.3f} ms (best "
+        f"of 3), Newton it/s {res.num_iterations / wall:.2f}")
+    if not (res.solved and res_cpu.solved and e_y <= QP_Y_LIMIT and e_s <= QP_SLACK_LIMIT
+            and e_cpu <= QP_CPU_LIMIT and low <= res.num_iterations <= high):
+        fail("4e: the QP Program breaks its limits on the card")
+
+    S = QP_BATCH
+    Ws, As, bs, cs, xs, ss = map(np.stack, zip(*(
+        qp_with_solution(n, ni, np.random.default_rng(s)) for s in range(S))))
+    args = ((convert.quadratic_cost(Ws, device), convert.linear_cone(-As, bs, device)), (),
+            convert.tensor(-cs, device),
+            (torch.zeros((S, 0), dtype=torch.float64, device=device),
+             torch.ones((S, ni), dtype=torch.float64, device=device)),
+            convert.scalars(dict(k=np.zeros(S), b_scaling=np.ones(S),
+                                 c_scaling=np.ones(S)), device))
+    r = convert.to_numpy(solve_scenarios(*args, config))
+    e_y = np.abs(r.y - xs).max(axis=1)
+    e_s = np.abs(np.einsum("sij,sj->si", As, r.y) + bs - ss).max(axis=1)
+    wall = best_wall(lambda: solve_scenarios(*args, config))
+    total = int(r.num_iterations.sum())
+    device_ms, launches, top = device_profile(lambda: solve_scenarios(*args, config))
+    passes = int(r.num_iterations.max())
+    log(f"[4e qp] batch of {S} (seeds 0-{S - 1}), f64: solved {int(r.solved.sum())}/{S} "
+        f"in {int(r.num_iterations.min())}-{passes} iterations; worst |y - x_opt|_inf "
+        f"{e_y.max():.3e} (seed {int(np.argmax(e_y))}, limit {QP_BATCH_Y_LIMIT}), worst "
+        f"slack {e_s.max():.3e} (limit {QP_BATCH_SLACK_LIMIT}); wall per solve {wall * 1e3:.3f} ms (best of 3), Newton "
+        f"it/s {total / wall:.2f} ({total} iterations); one profiled solve: {launches} "
+        f"launches (about {launches / passes:.1f} per pass), device-kernel time "
+        f"{device_ms:.3f} ms, busy {100 * device_ms / (wall * 1e3):.1f}% of the wall")
+    for ms, count, key in top[:5]:
+        log(f"[4e qp]   {ms:9.3f} ms x{count:<6} {key[:90]}")
+    if not (r.solved.all() and e_y.max() <= QP_BATCH_Y_LIMIT
+            and e_s.max() <= QP_BATCH_SLACK_LIMIT):
+        fail(f"4e: the QP batch breaks its limits (unsolved "
+             f"{np.flatnonzero(~r.solved).tolist()})")
+
+    # The epigraph form of seed 0: y = (x, t), t >= 1/2 x'Wx through a
+    # Q-weighted Lorentz cone (tests/test_quadratic_cone.py's configuration,
+    # with EPIGRAPH_ITERATIONS).
+    epi_config = SolverConfig(max_iterations=EPIGRAPH_ITERATIONS, inv_sqrt_mu_max=1e5)
+    epi = qp_program(n, W, A, b, device, epigraph=True)
+    obj = np.concatenate([-c, [-1.0]])
+    res = epi.solve(obj, epi_config)
+    e_y = float(np.abs(res.y[:n] - x_opt).max())
+    e_t = abs(float(res.y[n]) - 0.5 * float(res.y[:n] @ W @ res.y[:n]))
+    wall = best_wall(lambda: epi.solve(obj, epi_config))
+    log(f"[4e qp] epigraph form, Program({n + 1}): solved {res.solved} in "
+        f"{res.num_iterations} iterations, |y - x_opt|_inf {e_y:.3e} (limit "
+        f"{QP_EPIGRAPH_LIMIT}), |t - x'Wx/2| {e_t:.3e}; wall per solve "
+        f"{wall * 1e3:.3f} ms (best of 3), Newton it/s {res.num_iterations / wall:.2f}")
+    if not (res.solved and e_y <= QP_EPIGRAPH_LIMIT):
+        fail("4e: the epigraph QP breaks its limit on the card")
+    if any(kernel.launches for kernel in kernels):
+        fail("K1 or K2 launched on the QP path")
+
+
+def eq_lp_instance(rng, m=5, n=8, p=2):
+    """tests/test_equality.py::build_instance: an LP of n rows over m
+    variables with p equality rows.  Returns A, c, Aeq, beq, b."""
+    import numpy as np
+
+    A = rng.uniform(-1, 1, (n, m))
+    c = np.abs(rng.uniform(-1, 1, n)) + 0.5
+    Aeq = rng.uniform(-1, 1, (p, m))
+    beq = Aeq @ (0.1 * rng.uniform(-1, 1, m))
+    b = A.T @ np.abs(rng.uniform(-1, 1, n)) + Aeq.T @ rng.uniform(-1, 1, p)
+    return A, c, Aeq, beq, b
+
+
+def phase_eq_known_answers(device):
+    """5d: the JAX package's equality, QR and QP-guard tests on the card."""
+    import numpy as np
+
+    from conex_tpu_torch import KKT_SOLVER_LLT, KKT_SOLVER_QR, Program, SolverConfig
+
+    # tests/test_equality.py::test_equality_known_optimum: maximize y1 + y2
+    # s.t. y1 + y2 + y3 = 1, 0 <= y <= 1: optimum 1.
+    m = 3
+    ys = {}
+    for where in ("card", "cpu"):
+        prog = Program(m, device=device if where == "card" else "cpu")
+        prog.add_linear_constraint(np.vstack([np.eye(m), -np.eye(m)]),
+                                   np.concatenate([np.ones(m), np.zeros(m)]))
+        prog.add_equality_constraint(np.ones((1, m)), np.array([1.0]))
+        res = prog.solve(np.array([1.0, 1.0, 0.0]), SolverConfig(max_iterations=60))
+        if not res.solved:
+            fail(f"5d: the equality known optimum is not solved on the {where}")
+        ys[where] = res.y
+    e_obj = abs(ys["card"][0] + ys["card"][1] - 1.0)
+    e_eq = abs(ys["card"].sum() - 1.0)
+    e_cpu = float(np.abs(ys["card"] - ys["cpu"]).max())
+    log(f"[5d eq known answers] max y1 + y2 s.t. y1 + y2 + y3 = 1, 0 <= y <= 1: y "
+        f"{ys['card'].tolist()}, |b'y - 1| {e_obj:.3e} (limit 1e-6), |sum y - 1| "
+        f"{e_eq:.3e} (limit 1e-8), max |card - CPU| {e_cpu:.3e} (limit 1e-8)")
+    if not (e_obj <= 1e-6 and e_eq <= 1e-8 and e_cpu <= 1e-8):
+        fail("5d: the equality known optimum does not hold on the card")
+
+    # tests/test_equality.py::test_equality_kkt: stationarity through the
+    # cone and equality duals.
+    A, c, Aeq, beq, b = eq_lp_instance(np.random.default_rng(0))
+    prog = Program(5, device=device)
+    prog.add_linear_constraint(A, c)
+    prog.add_equality_constraint(Aeq, beq)
+    res = prog.solve(b, SolverConfig(max_iterations=60, prepare_dual_variables=True))
+    x, lam = prog.get_dual_variable(0), prog.get_equality_dual(0)
+    e_stat = float(np.linalg.norm(A.T @ x + Aeq.T @ lam - b))
+    e_feas = float(np.linalg.norm(Aeq @ res.y - beq))
+    log(f"[5d eq known answers] equality KKT instance: solved {res.solved} in "
+        f"{res.num_iterations} iterations, ||A'x + Aeq'lambda - b|| {e_stat:.3e} "
+        f"(limit 1e-5), ||Aeq y - beq|| {e_feas:.3e} (limit 1e-8), min x "
+        f"{float(x.min()):.3e}")
+    if not (res.solved and e_stat <= 1e-5 and e_feas <= 1e-8 and x.min() >= -1e-9):
+        fail("5d: the equality duals are not stationary on the card")
+
+    # tests/test_failure_corpus.py::test_qr_succeeds_where_llt_fails.
+    rng = np.random.default_rng(1)
+    row = rng.uniform(-1, 1, 4)
+    A = np.vstack([row, row, rng.uniform(-1, 1, 4)])
+    c = np.abs(rng.uniform(0.5, 1.5, 3))
+    c[1] = c[0]
+    b = A.T @ np.array([1.0, 1.0, 0.5])
+    out = {}
+    for mode in (KKT_SOLVER_LLT, KKT_SOLVER_QR):
+        prog = Program(4, device=device)
+        prog.add_linear_constraint(A, c)
+        out[mode] = prog.solve(b, SolverConfig(max_iterations=30, kkt_solver=mode))
+    llt, qr = out[KKT_SOLVER_LLT], out[KKT_SOLVER_QR]
+    least = float((c - A @ qr.y).min())
+    log(f"[5d eq known answers] rank-deficient LP: LLT solved {llt.solved} (fail "
+        f"{bool(llt._raw.fail)}), QR solved {qr.solved} in {qr.num_iterations} "
+        f"iterations, least slack {least:.3e} (limit -1e-6)")
+    if llt.solved or not bool(llt._raw.fail) or not qr.solved or least < -1e-6:
+        fail("5d: LLT must fail and QR solve the rank-deficient LP on the card")
+
+    # tests/test_qp.py::test_qp_requires_line_search.
+    prog = Program(2, device=device)
+    prog.add_quadratic_cost(np.eye(2))
+    prog.add_linear_constraint(np.eye(2), np.ones(2))
+    try:
+        prog.solve(np.ones(2))
+    except ValueError as err:
+        if "line_search" not in str(err):
+            fail(f"5d: the quadratic-cost guard raised {err!r}")
+        log(f"[5d eq known answers] quadratic cost without line search: {err}")
+    else:
+        fail("5d: a quadratic cost without line search was solved")
 
 
 # ---------------------------------------------------------------------------
@@ -1444,9 +1947,12 @@ def main():
     phase_small_vs_cpu(device)
     fused["launches"] = phase_socp_main_path(device)
     phase_lp_path(device)
+    schur["path_launches"] = {"4": schur["launches"], "4d": phase_eq_sdp(device)}
+    phase_qp(device)
     phase_known_answer(device)
     phase_soc_known_answer(device)
     phase_lp_known_answer(device)
+    phase_eq_known_answers(device)
     for name, n in phase_probe_entry_points().items():
         probes[name]["launches"] = n
 
@@ -1459,9 +1965,12 @@ def main():
               library_ms=None, **probes[name])
          for name, _, replaces, source in PROBES]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "plan")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "plan",
+            "path_launches")
+    optional = ("plan", "path_launches")
     log(LIBRARY_NOTE)
-    print(json.dumps({"kernels": [{k: kern[k] for k in keys if k != "plan" or k in kern}
+    print(json.dumps({"kernels": [{k: kern[k] for k in keys
+                                   if k not in optional or k in kern}
                                   for kern in kernels]}), flush=True)
     print(card_name_and_power_limit(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,8 +5,10 @@ module.  It covers the batched dense-SDP solve (dense LMI cones, the
 divergence mu update and the dense LLT KKT path, with the Schur phase as a
 hand-written CUDA kernel, ``csrc/schur.cu``), the batched SOCP solve (the
 SOC cone on the general path, and ``parallel.fused_socp``, the whole
-solve as one CUDA kernel, ``csrc/fused_socp.cu``) and the LP cone with
-the line-search mu update.  Each kernel runs on the
+solve as one CUDA kernel, ``csrc/fused_socp.cu``), the LP cone with
+the line-search mu update, and the indefinite-KKT half: equality
+constraints, quadratic costs and Q-weighted quadratic cones, with the
+clamped LDLT and QR KKT modes.  Each kernel runs on the
 card and its plain PyTorch twin on the CPU.  The package imports torch and
 numpy, never jax.
 """
@@ -20,8 +22,11 @@ from .config import (
     WARMSTART,
     SolverConfig,
 )
+from .cones.equality import EqualityBlock
 from .cones.lp import LinearCone
 from .cones.psd import DenseLMICone
+from .cones.qcost import QuadraticCost
+from .cones.quadratic import QuadraticCone
 from .cones.soc import SOCCone
 from .parallel.sharded import solve_scenarios
 from .program import Program, Result
@@ -34,8 +39,11 @@ __all__ = [
     "KKT_SOLVER_QR",
     "WARMSTART",
     "DenseLMICone",
+    "EqualityBlock",
     "LinearCone",
     "Program",
+    "QuadraticCone",
+    "QuadraticCost",
     "Result",
     "SOCCone",
     "SolverConfig",

@@ -51,6 +51,12 @@ class SlackStats(NamedTuple):
     trace: torch.Tensor
 
 
+class StepCache(NamedTuple):
+    """Newton direction data cached between prepare_step and take_step."""
+
+    d: torch.Tensor
+
+
 def local_vars(y: torch.Tensor, vars_: Optional[Tuple[int, ...]], v: int):
     """Gather the local variable segment of the KKT vectors y (S, N).
 

@@ -5,9 +5,9 @@ defaults, so a configuration written for the JAX package means the same
 thing here.  The copy exists because importing ``conex_tpu.config`` would
 import ``conex_tpu``, which imports jax; a test keeps the two in step.
 
-Fields that the port does not implement yet (line search, the LDLT and QR
-KKT modes) are accepted here and rejected by the solve loop with the
-ROADMAP item that brings them.
+Every field is implemented by the solve loop; the supernodal KKT path and
+sharding, which no field selects, raise with the ROADMAP item that brings
+them.
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """Carry problem data and solver state between numpy and the port.
 
 The JAX package's data and state convert to numpy with ``np.asarray``
-(cone tensors ``LinearCone.A/c``, ``DenseLMICone.A/C`` and
-``SOCCone.A/c``, ``PSDState``
-fields, the init scalars); these helpers turn such numpy arrays into the
+(cone tensors ``LinearCone.A/c``, ``DenseLMICone.A/C``, ``SOCCone.A/c``,
+``QuadraticCone.A/c/Q``, ``QuadraticCost.Q`` and ``EqualityBlock.A/b``,
+``PSDState`` fields, the init scalars); these helpers turn such numpy arrays into the
 port's tensors on a given device, and a port ``SolveResult`` or
 ``FusedSOCPResult`` back into numpy (``to_numpy``).  The field names and
 layouts are the JAX package's, with the scenario axis first.
@@ -14,8 +14,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .cones.equality import EqualityBlock
 from .cones.lp import LinearCone
 from .cones.psd import DenseLMICone, PSDState
+from .cones.qcost import QuadraticCost
+from .cones.quadratic import QuadraticCone
 from .cones.soc import SOCCone
 
 
@@ -24,9 +27,9 @@ def tensor(x, device=None) -> torch.Tensor:
     return torch.as_tensor(np.array(x, order="C"), device=device)
 
 
-def linear_cone(A, c, device=None) -> LinearCone:
+def linear_cone(A, c, device=None, vars_=None) -> LinearCone:
     """LinearCone from A (S, n, v) and c (S, n)."""
-    return LinearCone(A=tensor(A, device), c=tensor(c, device))
+    return LinearCone(A=tensor(A, device), c=tensor(c, device), vars_=vars_)
 
 
 def lmi_cone(A, C, device=None) -> DenseLMICone:
@@ -37,6 +40,24 @@ def lmi_cone(A, C, device=None) -> DenseLMICone:
 def soc_cone(A, c, device=None) -> SOCCone:
     """SOCCone from A (S, B, n+1, v) and c (S, B, n+1)."""
     return SOCCone(A=tensor(A, device), c=tensor(c, device))
+
+
+def quadratic_cone(A, c, Q=None, device=None, vars_=None) -> QuadraticCone:
+    """QuadraticCone from A (S, B, n+1, v), c (S, B, n+1) and Q
+    (S, B, n, n) or None; A_gram is computed here, as ``build`` does."""
+    return QuadraticCone.build(tensor(A, device), tensor(c, device),
+                               None if Q is None else tensor(Q, device), vars_)
+
+
+def quadratic_cost(Q, device=None, vars_=None) -> QuadraticCost:
+    """QuadraticCost from Q (S, v, v)."""
+    return QuadraticCost(Q=tensor(Q, device), vars_=vars_)
+
+
+def equality_block(A, b, device=None, vars_=None, dual_offset=0) -> EqualityBlock:
+    """EqualityBlock from A (S, p, v) and b (S, p)."""
+    return EqualityBlock(A=tensor(A, device), b=tensor(b, device), vars_=vars_,
+                         dual_offset=dual_offset)
 
 
 def psd_state(state, device=None) -> PSDState:

@@ -1,11 +1,14 @@
-"""Host-side Program: a conic program of LP, SOC and LMI constraints.
+"""Host-side Program: a conic program with equality constraints and
+quadratic costs.
 
-Twin of the LP, SOC and LMI subset of ``conex_tpu/program.py``: collect
-linear, Lorentz-cone and dense LMI constraints, update their data in
-place, solve coldstart or warmstart, read back the dual variables, and
-save or load the warmstart state.  The other adders come with their cones
-(ROADMAP.md queue 1).  A Program runs on one device, given as ``device=``:
-the card (``"cuda"``) unless the caller asks for ``"cpu"``.
+Twin of ``conex_tpu/program.py`` for dense programs: collect linear,
+Lorentz-cone, Q-weighted quadratic-cone and dense LMI constraints,
+quadratic costs and their epigraphs, and affine equalities; update cone
+data in place, solve coldstart or warmstart, read back the dual variables
+(cones and equalities), and save or load the warmstart state.  Hermitian
+cones and sparse variable subsets (the supernodal KKT path) come later
+(ROADMAP.md queue 1).  A Program runs on one device, given as
+``device=``: the card (``"cuda"``) unless the caller asks for ``"cpu"``.
 """
 
 from __future__ import annotations
@@ -16,9 +19,12 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
-from .config import COLDSTART, WARMSTART, SolverConfig, not_ported
+from .config import COLDSTART, KKT_SOLVER_LDLT, KKT_SOLVER_LLT, WARMSTART, SolverConfig, not_ported
+from .cones.equality import EqualityBlock
 from .cones.lp import LinearCone
 from .cones.psd import DenseLMICone, PSDState
+from .cones.qcost import QuadraticCost
+from .cones.quadratic import QuadraticCone, epigraph_cone_data
 from .cones.soc import SOCCone
 from .convert import to_numpy
 from .solver.loop import SolveResult, _solve_impl, _strip_scenario, assemble
@@ -55,14 +61,19 @@ class Result:
 
 
 class Program:
-    """A conic program: maximize b'y  s.t.  c - A y >= 0 (linear),
-    c_j - A_j y in Q (Lorentz cones) and C - sum_i y_i A_i PSD (LMIs)."""
+    """A conic program: maximize b'y (- 1/2 y'Q y)  s.t.  c - A y in K,
+    A_eq y = b_eq; K a product of linear, (Q-weighted) Lorentz and LMI
+    cones."""
 
     def __init__(self, num_vars: int, dtype=torch.float64, device="cuda"):
         self.num_vars = int(num_vars)
         self.dtype = dtype
         self.device = torch.device(device)
-        self._blocks: List[Union[LinearCone, SOCCone, DenseLMICone]] = []
+        self._blocks: List[Union[LinearCone, SOCCone, QuadraticCone,
+                                 DenseLMICone, QuadraticCost]] = []
+        self._eq_blocks: List[EqualityBlock] = []
+        self._dual_size = 0
+        self._has_quadratic_cost = False
         self._ws = None  # warmstart state (final cone iterates)
         self._scalings = None  # (b_scaling, c_scaling) from last solve
         self._last_result: Optional[SolveResult] = None
@@ -146,6 +157,81 @@ class Program:
         )
         return len(self._blocks) - 1
 
+    def add_quadratic_cone_constraint(self, A, c, Q=None, variables=None):
+        """c - A y in the Q-weighted Lorentz cone (reference
+        QuadraticConstraint): slack (s0, s1) with s0 >= sqrt(s1' Q s1).
+
+        A: (n+1, v), c: (n+1,), Q: (n, n) PSD or None (identity); or the
+        batched forms with a leading B axis.
+        """
+        A = np.asarray(A, dtype=np.float64)
+        c = np.asarray(c, dtype=np.float64)
+        if A.ndim == 2:
+            A = A[None]
+            c = c[None]
+            if Q is not None:
+                Q = np.asarray(Q, dtype=np.float64)[None]
+        if A.ndim != 3 or A.shape[:2] != c.shape:
+            raise ValueError("A and c batch/cone dimensions must match")
+        if Q is not None:
+            Q = np.asarray(Q, dtype=np.float64)
+            if Q.shape != (A.shape[0], A.shape[1] - 1, A.shape[1] - 1):
+                raise ValueError("Q must be (B, n, n) matching A")
+        self._check_variables(variables, A.shape[2])
+        self._blocks.append(QuadraticCone.build(
+            self._tensor(A)[None], self._tensor(c)[None],
+            None if Q is None else self._tensor(Q)[None],
+        ))
+        return len(self._blocks) - 1
+
+    def add_quadratic_cost_epigraph(self, Qi, variables, epigraph_variable):
+        """t >= 1/2 x'Qi x through a Q-weighted Lorentz cone, with x the
+        ``variables`` and t the ``epigraph_variable``; add -1 * t to the
+        objective to minimize the cost.
+
+        reference: AddQuadraticCostEpigraph
+        (quadratic_cone_constraint.h:91-118).  Only x = y[0:nv], t = y[nv]
+        is dense; any other placement is a sparse subset, which needs the
+        supernodal KKT path (not ported yet).
+        """
+        Qi = np.atleast_2d(np.asarray(Qi, dtype=np.float64))
+        variables = list(variables)
+        if len(variables) != Qi.shape[0]:
+            raise ValueError("Qi order must match number of variables")
+        Q, A, b = epigraph_cone_data(torch.tensor(Qi, dtype=torch.float64))
+        return self.add_quadratic_cone_constraint(
+            A.numpy(), b.numpy(), Q=Q.numpy(),
+            variables=variables + [int(epigraph_variable)],
+        )
+
+    def add_quadratic_cost(self, Q, variables=None):
+        """Adds -1/2 y'Q y to the (maximized) objective.
+
+        reference: Program::AddQuadraticCost (cone_program.cc:554-570).
+        Requires enable_line_search and no rescaling at solve time
+        (reference guard cone_program.cc:237-240, checked in solve()).
+        """
+        Q = np.atleast_2d(np.asarray(Q, dtype=np.float64))
+        if Q.shape[0] != Q.shape[1] or not np.allclose(Q, Q.T):
+            raise ValueError("quadratic cost must be square symmetric")
+        self._check_variables(variables, Q.shape[0])
+        self._has_quadratic_cost = True
+        self._blocks.append(QuadraticCost(Q=self._tensor(Q)[None]))
+        return len(self._blocks) - 1
+
+    def add_equality_constraint(self, A, b, variables=None):
+        """A y = b (reference EqualityConstraints); returns the index that
+        get_equality_dual takes."""
+        A = np.atleast_2d(np.asarray(A, dtype=np.float64))
+        b = np.asarray(b, dtype=np.float64).reshape(-1)
+        self._check_variables(variables, A.shape[1])
+        self._eq_blocks.append(EqualityBlock(
+            A=self._tensor(A)[None], b=self._tensor(b)[None],
+            dual_offset=self._dual_size,
+        ))
+        self._dual_size += A.shape[0]
+        return len(self._eq_blocks) - 1
+
     # -- incremental updates ----------------------------------------------
 
     def _with_entries(self, x, entries):
@@ -209,10 +295,26 @@ class Program:
             raise ValueError("constraint does not support affine updates")
         self._blocks[i] = blk
 
-    def solve(self, b, config: Optional[SolverConfig] = None) -> Result:
-        """Maximize b'y over the constraints.  reference: Solve(b, prog, ...)."""
+    def _default_config(self, config: Optional[SolverConfig]) -> SolverConfig:
         if config is None:
             config = SolverConfig()
+        if self._eq_blocks and config.kkt_solver == KKT_SOLVER_LLT:
+            # Equality duals make the KKT matrix indefinite; the reference
+            # forces the LDLT path (kkt_solver.cc:180-187).
+            config = config.replace(kkt_solver=KKT_SOLVER_LDLT)
+        return config
+
+    def solve(self, b, config: Optional[SolverConfig] = None) -> Result:
+        """Maximize b'y over the constraints.  reference: Solve(b, prog, ...)."""
+        config = self._default_config(config)
+        if self._has_quadratic_cost and not (
+            config.enable_line_search and not config.enable_rescaling
+        ):
+            # reference guard: cone_program.cc:237-240.
+            raise ValueError(
+                "quadratic costs require enable_line_search=True and "
+                "enable_rescaling=False"
+            )
         b = self._tensor(np.asarray(b, dtype=np.float64).reshape(-1))
         if b.shape[0] != self.num_vars:
             raise ValueError("objective dimension mismatch")
@@ -236,7 +338,8 @@ class Program:
         )
 
         res = _solve_impl(
-            tuple(self._blocks), (), b[None], init_ws, init_scalars, config
+            tuple(self._blocks), tuple(self._eq_blocks), b[None], init_ws,
+            init_scalars, config,
         )
 
         self._ws = res.ws
@@ -276,6 +379,21 @@ class Program:
             w = w[0]  # single-cone batch: return the cone element itself
         return w
 
+    def get_equality_dual(self, i: int) -> np.ndarray:
+        """lambda of equality block i, from the tail of the KKT solution.
+
+        reference: equality_constraint.cc:30-35 (lambda = y tail).  Scaled
+        by 1/(inv_sqrt_mu * b_scaling) like the cone duals, so that the
+        stationarity condition b = A_cone' x + A_eq' lambda holds.
+        """
+        raw = self._last_result
+        if raw is None:
+            raise RuntimeError("no solve yet")
+        lam = self._eq_blocks[i].dual_variable(raw.y_kkt[None], self.num_vars)[0]
+        if not bool(raw.primal_infeasible):
+            lam = lam / (float(raw.k) * float(raw.b_scaling))
+        return lam
+
     # -- checkpoint / resume ----------------------------------------------
 
     def save_state(self) -> dict:
@@ -313,5 +431,7 @@ class Program:
         """
         blocks = tuple(self._blocks)
         ws = tuple(blk.identity_state(self.dtype) for blk in blocks)
-        _, AW, _, _, _ = assemble(blocks, ws, self.num_vars, self.dtype)
-        return 0.5 * to_numpy(AW[0])
+        n_kkt = self.num_vars + self._dual_size
+        _, AW, _, _, _ = assemble(blocks, tuple(self._eq_blocks), ws, n_kkt,
+                                  self.num_vars, self.dtype)
+        return 0.5 * to_numpy(AW[0, :self.num_vars])

@@ -22,7 +22,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..cones.base import local_vars, per_scenario, tree_select
-from ..config import SCHUR_PRECISION_MODES, WARMSTART, SolverConfig, not_ported
+from ..config import SCHUR_PRECISION_MODES, WARMSTART, SolverConfig
 from . import kkt
 from .mu import SlackAgg, mu_from_divergence
 
@@ -30,7 +30,7 @@ from .mu import SlackAgg, mu_from_divergence
 class LoopState(NamedTuple):
     i: torch.Tensor  # (S,) int64 iteration counter
     ws: Tuple  # per-block cone iterates, each field (S, ...)
-    y: torch.Tensor  # (S, m) KKT solution of the last iteration
+    y: torch.Tensor  # (S, n_kkt) KKT solution of the last iteration
     k: torch.Tensor  # (S,) inv_sqrt_mu
     k_max: torch.Tensor  # (S,) dynamic inv_sqrt_mu_max (updated by rescaling)
     b_scaling: torch.Tensor
@@ -62,7 +62,7 @@ class SolveResult(NamedTuple):
     dual_infeasible: torch.Tensor
     num_iterations: torch.Tensor
     ws: Tuple  # final cone iterates (warmstart state / dual variables)
-    y_kkt: torch.Tensor  # (S, m) raw final KKT solution
+    y_kkt: torch.Tensor  # (S, n_kkt) raw final KKT solution (equality duals in the tail)
     k: torch.Tensor
     b_scaling: torch.Tensor
     c_scaling: torch.Tensor
@@ -81,37 +81,53 @@ class SolveResult(NamedTuple):
 # ---------------------------------------------------------------------------
 
 
-def assemble(blocks, ws, m: int, dtype):
-    """Assemble the (S, m, m) KKT matrices and residuals from the block
-    contributions.
+def _scatter_mat(G, vars_, Gi):
+    """Add a block's (S, v, v) contribution onto its variables of G
+    (S, N, N), in place: the first v, or ``vars_`` (JAX ``_scatter_mat``)."""
+    if vars_ is None:
+        v = Gi.shape[-1]
+        G[:, :v, :v] += Gi
+    else:
+        ix = torch.tensor(vars_, device=G.device)
+        G[:, ix[:, None], ix[None, :]] += Gi
+
+
+def _scatter_vec(x, vars_, xi):
+    """The same for an (S, v) contribution to x (S, N)."""
+    x[:, slice(0, xi.shape[-1]) if vars_ is None else list(vars_)] += xi
+
+
+def assemble(blocks, eq_blocks, ws, n_kkt: int, m: int, dtype):
+    """Assemble the (S, n_kkt, n_kkt) KKT matrices and residuals from the
+    block contributions; n_kkt = m + the equality rows.
 
     reference: Assemble + AssembleSchurComplementResiduals
-    (cone_program.cc:339-340, constraint_manager.h:107-124).  Dense blocks
-    only: a block covers the first ``v`` variables.
+    (cone_program.cc:339-340, constraint_manager.h:107-124,
+    equality_constraint.cc:13-28).  A cone block covers the first ``v``
+    variables or scatters onto its ``vars_``; an equality block adds
+    [0 A^T; A 0] on its dual rows and b to the tail of AQc.
     """
-    S = blocks[0].scenarios
-    device = blocks[0].A.device
-    G = torch.zeros((S, m, m), dtype=dtype, device=device)
-    AW = torch.zeros((S, m), dtype=dtype, device=device)
-    AQc = torch.zeros((S, m), dtype=dtype, device=device)
+    outs = [blk.schur(w) for blk, w in zip(blocks, ws)]
+    S, device = outs[0].G.shape[0], outs[0].G.device
+    G = torch.zeros((S, n_kkt, n_kkt), dtype=dtype, device=device)
+    AW = torch.zeros((S, n_kkt), dtype=dtype, device=device)
+    AQc = torch.zeros((S, n_kkt), dtype=dtype, device=device)
     w_dot_c = torch.zeros((S,), dtype=dtype, device=device)
     c_dot_Qc = torch.zeros((S,), dtype=dtype, device=device)
-    for blk, w in zip(blocks, ws):
-        out = blk.schur(w)
-        v = out.G.shape[-1]
-        if v == m:
-            G = G + out.G
-            AW = AW + out.AW
-            AQc = AQc + out.AQc
-        else:
-            G = G.clone()
-            G[:, :v, :v] += out.G
-            AW = AW.clone()
-            AW[:, :v] += out.AW
-            AQc = AQc.clone()
-            AQc[:, :v] += out.AQc
+    for blk, out in zip(blocks, outs):
+        _scatter_mat(G, blk.vars_, out.G)
+        _scatter_vec(AW, blk.vars_, out.AW)
+        _scatter_vec(AQc, blk.vars_, out.AQc)
         w_dot_c = w_dot_c + out.w_dot_c
         c_dot_Qc = c_dot_Qc + out.c_dot_Qc
+    for eq in eq_blocks:
+        off = m + eq.dual_offset
+        rows = slice(off, off + eq.p)
+        cols = (slice(0, eq.num_vars) if eq.vars_ is None
+                else torch.tensor(eq.vars_, device=device))
+        G[:, rows, cols] += eq.A
+        G[:, cols, rows] += eq.A.transpose(1, 2)
+        AQc[:, rows] += eq.b
     return G, AW, AQc, w_dot_c, c_dot_Qc
 
 
@@ -215,16 +231,12 @@ def _set_row(stats, i, value):
     return stats.scatter(1, idx, value[:, None].to(stats.dtype))
 
 
-def _check_supported(blocks, eq_blocks, config: SolverConfig):
+def _check_supported(config: SolverConfig):
     if config.schur_precision not in SCHUR_PRECISION_MODES:
         raise ValueError(
             f"unknown schur_precision {config.schur_precision!r}; "
             f"valid: {SCHUR_PRECISION_MODES}"
         )
-    if eq_blocks:
-        raise not_ported("equality constraints", "10")
-    if any(blk.vars_ is not None for blk in blocks):
-        raise not_ported("sparse variable subsets", "13")
 
 
 @contextlib.contextmanager
@@ -251,17 +263,26 @@ def _solve_impl(blocks, eq_blocks, b, init_ws, init_scalars,
                 config: SolverConfig):
     """Solve S same-structure programs: b (S, m), block tensors and
     init_ws fields (S, ...), init_scalars k / b_scaling / c_scaling (S,)."""
-    _check_supported(blocks, eq_blocks, config)
+    _check_supported(config)
     with _no_tf32() if b.is_cuda else contextlib.nullcontext():
-        return _solve_loop(blocks, b, init_ws, init_scalars, config)
+        return _solve_loop(blocks, eq_blocks, b, init_ws, init_scalars, config)
 
 
-def _solve_loop(blocks, b, init_ws, init_scalars, config: SolverConfig):
+def _solve_loop(blocks, eq_blocks, b, init_ws, init_scalars,
+                config: SolverConfig):
     dtype = b.dtype
     device = b.device
     S, m = b.shape
+    # The equality duals follow the m primals in the KKT vector; b_full is
+    # b padded with zeros to n_kkt (conex_tpu/solver/loop.py:353-356).
+    n_kkt = m + sum(eq.p for eq in eq_blocks)
+    b_full = torch.zeros((S, n_kkt), dtype=dtype, device=device)
+    b_full[:, :m] = b
 
     rank_k = float(sum(blk.rank() for blk in blocks))
+    # The reference computes the KKT error only without quadratic costs
+    # (cone_program.cc:463-468).
+    has_qcost = any(getattr(blk, "is_cost", False) for blk in blocks)
     warmstart = config.initialization_mode == WARMSTART
     mode = config.kkt_solver
     refine = config.iterative_refinement_iterations
@@ -297,7 +318,7 @@ def _solve_loop(blocks, b, init_ws, init_scalars, config: SolverConfig):
 
         # --- Assemble (cone_program.cc:338-341) ---
         G, AW, AQc, w_dot_c, c_dot_Qc = assemble(
-            blocks, s.ws, m, dtype
+            blocks, eq_blocks, s.ws, n_kkt, m, dtype
         )
 
         # --- First-iteration rescaling (cone_program.cc:343-357) ---
@@ -306,7 +327,7 @@ def _solve_loop(blocks, b, init_ws, init_scalars, config: SolverConfig):
             if not warmstart:
                 b_scaling = torch.where(
                     do_rescale,
-                    1.0 / (1.0 + torch.linalg.vector_norm(b, dim=-1)),
+                    1.0 / (1.0 + torch.linalg.vector_norm(b_full, dim=-1)),
                     s.b_scaling,
                 )
                 c_scaling = torch.where(
@@ -330,7 +351,7 @@ def _solve_loop(blocks, b, init_ws, init_scalars, config: SolverConfig):
 
         # --- Factor ok ---
         AQc_s = AQc * c_scaling[:, None]
-        b_s_vec = b * b_scaling[:, None]
+        b_s_vec = b_full * b_scaling[:, None]
 
         # --- Mu update (cone_program.cc:374-403), branch-free ---
         if config.enable_line_search:
@@ -394,13 +415,16 @@ def _solve_loop(blocks, b, init_ws, init_scalars, config: SolverConfig):
         # --- Statistics (cone_program.cc:439-471) ---
         d_2sq = torch.abs(normsq)
         d_inf = torch.abs(norminf)
-        by = torch.sum(b * y, dim=-1) / (k * c_scaling)
+        by = torch.sum(b_full * y, dim=-1) / (k * c_scaling)
         cx = (
             2.0 * w_dot_c + torch.sum(AQc * y, dim=-1) - k * c_dot_Qc * c_scaling
         ) / (k * b_scaling)
         mu = 1.0 / (k * k)
         s_dot_x = mu * (rank_k - d_2sq) / (b_scaling * c_scaling)
-        kkt_error = torch.abs(cx - by - s_dot_x) / s_dot_x
+        if has_qcost:
+            kkt_error = s.kkt_error
+        else:
+            kkt_error = torch.abs(cx - by - s_dot_x) / s_dot_x
 
         # --- Termination (cone_program.cc:476-482) ---
         stop = (final_centering | (k >= k_max) | (k >= k_cap)) & (
@@ -510,7 +534,7 @@ def _solve_loop(blocks, b, init_ws, init_scalars, config: SolverConfig):
     s = LoopState(
         i=izero,
         ws=tuple(init_ws),
-        y=torch.zeros((S, m), dtype=dtype, device=device),
+        y=torch.zeros((S, n_kkt), dtype=dtype, device=device),
         k=scalars("k"),
         k_max=torch.full((S,), config.inv_sqrt_mu_max, dtype=dtype, device=device),
         b_scaling=scalars("b_scaling"),
@@ -557,9 +581,9 @@ def _solve_loop(blocks, b, init_ws, init_scalars, config: SolverConfig):
     if config.prepare_dual_variables:
         # Dual recovery: one extra assemble/factor/solve + affine step
         # (cone_program.cc:500-516).  A failed run keeps the loop's W.
-        G, AW, AQc, _, _ = assemble(blocks, ws_final, m, dtype)
+        G, AW, AQc, _, _ = assemble(blocks, eq_blocks, ws_final, n_kkt, m, dtype)
         fac = kkt.factor(G, mode, island_dtype=island)
-        bres = s.k[:, None] * b * s.b_scaling[:, None] - AW
+        bres = s.k[:, None] * b_full * s.b_scaling[:, None] - AW
         y2 = kkt.solve(fac, bres, mode, refine)
         skip = s.fail | fac.fail
         ws_recovered = tuple(
@@ -604,9 +628,10 @@ def solve(blocks, eq_blocks, b, init_ws, init_scalars, config: SolverConfig):
     block tensors, b (m,) and init state without the scenario axis.  Runs
     as a batch of one scenario and returns a SolveResult without it."""
     blocks1 = tuple(_add_scenario(blk) for blk in blocks)
+    eq1 = tuple(_add_scenario(eq) for eq in eq_blocks)
     ws1 = tuple(_add_scenario(w) for w in init_ws)
     scalars1 = {key: torch.as_tensor(x)[None] for key, x in init_scalars.items()}
-    res = _solve_impl(blocks1, eq_blocks, b[None], ws1, scalars1, config)
+    res = _solve_impl(blocks1, eq1, b[None], ws1, scalars1, config)
     return _strip_scenario(res)
 
 

@@ -268,8 +268,12 @@ def test_unsupported_options_raise_naming_roadmap_items():
     rj, rt = _run_both(A, C, b, _identity_ws(1, 1, 3), _cold_scalars(1),
                        enable_line_search=True, max_iterations=6)
     _assert_same_trajectory(rj, rt)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ct.solve_scenarios(*args, ct.SolverConfig(kkt_solver=ct.KKT_SOLVER_LDLT))
+    # The LDLT and QR KKT modes are ported: on the same LMI program each
+    # follows the JAX package's trajectory.
+    for mode in (ct.KKT_SOLVER_LDLT, ct.KKT_SOLVER_QR):
+        rj, rt = _run_both(A, C, b, _identity_ws(1, 1, 3), _cold_scalars(1),
+                           kkt_solver=mode, max_iterations=6)
+        _assert_same_trajectory(rj, rt)
     with pytest.raises(ValueError, match="schur_precision"):
         ct.solve_scenarios(*args, ct.SolverConfig(schur_precision="bf16"))
     # Every precision mode name of the JAX package is accepted.

@@ -1,8 +1,8 @@
 """What the port's kernel build costs, and where the paths' time goes.
 
-    python3 tools/kernel_costs.py [build] [fma] [profile] [probes] [sdp] [k1] [k2] [lp]
+    python3 tools/kernel_costs.py [build] [fma] [profile] [probes] [sdp] [k1] [k2] [lp] [kkt]
 
-Needs one CUDA card and nvcc; imports nothing of JAX.  Eight parts (all of
+Needs one CUDA card and nvcc; imports nothing of JAX.  Nine parts (all of
 them when none is named), each printing its own lines:
 
 1. build: the nvcc wall time of the library as ``conex_tpu_torch._build``
@@ -58,7 +58,11 @@ them when none is named), each printing its own lines:
 8. lp: the same profile of one solve of the LP path (chip_smoke.py phase
    4c: bench_accuracy's 200 x 400 LP in f64) through Program and of the
    batch of 64 through solve_scenarios, in both mu modes, with the
-   launches per iteration of the longest scenario.
+   launches per iteration of the longest scenario;
+9. kkt: the same profile of the indefinite-KKT path (chip_smoke.py phases
+   4d and 4e): one solve of the 256 equality-constrained SDPs (f64, LDLT),
+   one LDLT factor and one LDLT solve of their (256, 60, 60) KKT matrices,
+   the QP batch of 64 and the QP of seed 0 through Program.
 
 A run of all the parts holds the card for several minutes (part 2 builds
 the library twice); naming parts runs only those, so a question about one
@@ -78,8 +82,6 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402  (the workloads and the timing helper)
 
 SIZES = (1_000, 10_000, 100_000)
-LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
-                "cuLaunchKernelEx")
 
 
 def log(msg):
@@ -193,49 +195,19 @@ def part_fma(device):
 
 
 def profile(label, fn, iterations=None, top=5):
-    import torch
-    from torch.autograd import DeviceType
-
+    """The unprofiled wall of fn (best of 3) and one profiled call
+    (chip_smoke.device_profile): device-kernel time, launches, busy share
+    and the largest kernels."""
     fn()
-    torch.cuda.synchronize()
-    best = float("inf")
-    for _ in range(3):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        best = min(best, time.perf_counter() - t0)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-
-    def dev_us(e):  # the attribute's name differs between torch versions
-        if hasattr(e, "self_device_time_total"):
-            return e.self_device_time_total
-        return e.self_cuda_time_total
-
-    # On an H100 the trace may miss the first kernel launched in its window
-    # (K1's panel launch, in some runs), so a spin kernel goes first and is
-    # left out of every count; a trace that still holds fewer kernels than
-    # launch calls is taken again, up to three times.
-    for attempt in range(3):
-        with torch.profiler.profile(activities=acts) as prof:
-            torch.cuda._sleep(1_000_000)
-            fn()
-            torch.cuda.synchronize()
-        events = prof.key_averages()
-        kernels = [e for e in events
-                   if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
-        launches = sum(e.count for e in events if e.key in LAUNCH_CALLS) - 1
-        if sum(e.count for e in kernels) >= launches:
-            break
-        log(f"[profile] {label}: the trace holds fewer kernels than the "
-            f"{launches} launch calls; tracing again")
-    device_ms = sum(dev_us(e) for e in kernels) / 1e3
+    best = chip_smoke.best_wall(fn)
+    device_ms, launches, kernels = chip_smoke.device_profile(fn)
     per = f" ({launches / iterations:.1f} per iteration)" if iterations else ""
     log(f"[profile] {label}: wall {best * 1e3:.3f} ms (best of 3, unprofiled); "
-        f"device-kernel time {device_ms:.3f} ms in {sum(e.count for e in kernels)} "
+        f"device-kernel time {device_ms:.3f} ms in {sum(k[1] for k in kernels)} "
         f"device ops, {launches} launch calls{per}; device busy "
         f"{100 * device_ms / (best * 1e3):.1f}% of the wall")
-    for e in sorted(kernels, key=dev_us, reverse=True)[:top]:
-        log(f"[profile]   {dev_us(e) / 1e3:9.3f} ms x{e.count:<6} {e.key[:90]}")
+    for ms, count, key in kernels[:top]:
+        log(f"[profile]   {ms:9.3f} ms x{count:<6} {key[:90]}")
 
 
 def part_profile(device):
@@ -344,6 +316,49 @@ def part_lp(device):
         iters = int(solve_scenarios(*args, config).num_iterations.max())
         profile(f"LP batch of {S} f64 through solve_scenarios, {mode}",
                 lambda: solve_scenarios(*args, config), iterations=iters, top=10)
+
+
+def part_kkt(device):
+    import numpy as np
+    import torch
+
+    from conex_tpu_torch import KKT_SOLVER_LDLT, convert, solve_scenarios
+    from conex_tpu_torch.solver import kkt
+
+    S, n, m, p = chip_smoke.EQ_SDP_SHAPE
+    args, (_, _, Aeq, _, _) = chip_smoke.eq_sdp_batch(range(S), n, m, p, device)
+    config = chip_smoke.eq_sdp_config()
+    iters = int(solve_scenarios(*args, config).num_iterations.max())
+    profile(f"equality SDP, {S} scenarios, f64, LDLT", lambda: solve_scenarios(*args, config),
+            iterations=iters, top=15)
+    K = torch.zeros((S, m + p, m + p), dtype=torch.float64, device=device)
+    K[:, :m, :m] = torch.eye(m, dtype=torch.float64, device=device)
+    K[:, m:, :m] = torch.from_numpy(Aeq).to(device)
+    K[:, :m, m:] = K[:, m:, :m].transpose(1, 2)
+    f = kkt.factor(K, KKT_SOLVER_LDLT)
+    rhs = torch.ones((S, m + p), dtype=torch.float64, device=device)
+    profile(f"one LDLT factor ({S}, {m + p}, {m + p})", lambda: kkt.factor(K, KKT_SOLVER_LDLT))
+    profile("one LDLT solve", lambda: kkt.solve(f, rhs, KKT_SOLVER_LDLT))
+
+    nq, ni = chip_smoke.QP_SHAPE
+    Q = chip_smoke.QP_BATCH
+    Ws, As, bs, cs, _, _ = map(np.stack, zip(*(
+        chip_smoke.qp_with_solution(nq, ni, np.random.default_rng(s)) for s in range(Q))))
+    qargs = ((convert.quadratic_cost(Ws, device), convert.linear_cone(-As, bs, device)), (),
+             convert.tensor(-cs, device),
+             (torch.zeros((Q, 0), dtype=torch.float64, device=device),
+              torch.ones((Q, ni), dtype=torch.float64, device=device)),
+             convert.scalars(dict(k=np.zeros(Q), b_scaling=np.ones(Q),
+                                  c_scaling=np.ones(Q)), device))
+    qconfig = chip_smoke.qp_config()
+    iters = int(solve_scenarios(*qargs, qconfig).num_iterations.max())
+    profile(f"QP batch of {Q}, f64, LLT, line search", lambda: solve_scenarios(*qargs, qconfig),
+            iterations=iters, top=10)
+    W, A, b, c, _, _ = chip_smoke.qp_with_solution(nq, ni, np.random.default_rng(0))
+    prog = chip_smoke.qp_program(nq, W, A, b, device)
+    iters = prog.solve(-c, qconfig).num_iterations
+    profile("QP seed 0 through Program", lambda: prog.solve(-c, qconfig),
+            iterations=iters, top=10)
 
 
 # (scratch MiB, Gram blocks per SM): chunks that stay in the 50 MB L2
@@ -592,7 +607,7 @@ def part_k2(device):
 
 PARTS = {"build": lambda device: part_build(), "fma": part_fma,
          "profile": part_profile, "probes": part_probes, "sdp": part_sdp,
-         "k1": part_k1, "k2": part_k2, "lp": part_lp}
+         "k1": part_k1, "k2": part_k2, "lp": part_lp, "kkt": part_kkt}
 
 
 def main(argv=None):
