@@ -100,6 +100,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    allowed, EPIGRAPH_ITERATIONS), y within 1e-7 of x_opt;
    the walls, Newton it/s, the batch's launches and busy share; K1 and K2
    must not launch;
+4f. the Hermitian path (no kernel of its own: K1 and K2 must not launch
+   on it): benchmarks/bench_hermitian.py's batch (S = 32 scenarios, one
+   complex (d = 2) LMI each, n = 64, m = 16, f32, 30 fixed iterations,
+   scaled-k cap 100, seed 0) through solve_scenarios with HermitianCone:
+   every scenario must run 30 iterations with no factorization failure;
+   Newton it/s as the best of 3 runs with the warm eigenvector seeds and
+   with the cold estimator forced (cones/hermitian.py FORCE_COLD), the same
+   workload at d = 4 (quaternions, the same gate), the launches per
+   iteration and the busy share of one profiled warm solve; then a small
+   f64 batch on the card against the CPU (HERM_K_LIMIT, HERM_Y_LIMIT);
 5. a known answer: a small f64 SDP through Program(device="cuda"), against
    lambda_min(C) and the CPU solve;
 5b. a known SOC answer through Program(device="cuda"): max b'y s.t.
@@ -114,6 +124,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    ||A'x + Aeq'lambda - b|| <= 1e-5), tests/test_failure_corpus.py's
    rank-deficient LP (LLT fails, QR solves), and tests/test_qp.py's guard
    (a quadratic cost without line search raises);
+5e. the Hermitian known answers and the front ends on the card against
+   the CPU: tests/test_interface.py's tridiagonal Hermitian LMI (y = -1)
+   for d = 1, 2, 4, 8 through interface.Conex(device="cuda") (at d = 1 a
+   dense LMI: K1 launches once per KKT assembly; at d > 1 it must not),
+   tests/test_hermitian.py's octonion SDP (solved, mu falling, y and the
+   iteration count as on the CPU), bench_accuracy.py's complex and
+   quaternion Hermitian SDPs in f64 (solved, b'y within HERM_OBJ_LIMIT of
+   the CPU's), and tests/test_sedumi.py's all-cone-types problem through
+   sedumi.solve_sedumi(device="cuda") (its own assertions, and y as on the
+   CPU);
 6. the probe entry points: benchmarks/dev_pallas_probe.py's main at
    256,50,100 and dev_tpu_probe2.py's part2 through their twins in
    conex_tpu_torch/benchmarks, on the card in f32: each variant's kernel
@@ -122,8 +142,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    copy of A), and one K3 call no more than its plan's panel scratch and
    partials.
 
-The last lines are the kernels' JSON record (K2's and K3-K6's with their
-plans, K1's with its launches on phases 4 and 4d; with each kernel's bound:
+The last lines are the whole run's time, the kernels' JSON record (K2's
+and K3-K6's with their plans, K1's with its launches on phases 4, 4d and
+5e; with each kernel's bound:
 the larger of its operations over the peak rate of the units that do
 them and its bytes over 3.35 TB/s; every Schur kernel's products run on
 the tensor cores, three TF32 passes per f32 product at 495 TFLOP/s), the
@@ -212,6 +233,29 @@ QP_EPIGRAPH_LIMIT = 1e-7  # the epigraph solve's y against x_opt
 # with b moved by up to 2 units of 2^-52 (tools/reference_runs.py qp).  So
 # 60 leaves little room, and the phase allows 100.
 EPIGRAPH_ITERATIONS = 100
+# The Hermitian path (phases 4f, 5e).  4f: benchmarks/bench_hermitian.py's
+# batch, HERM_SHAPE = (S, d, n, m), f32, HERM_ITERATIONS fixed iterations;
+# its small f64 batch on the card is held to the CPU by y at HERM_Y_LIMIT
+# and by stats_k at HERM_K_LIMIT: the warm estimator's f32 sweep rounds
+# differently on the card, and the CPU alone moves that batch's stats_k by
+# 1.5e-6 to 3.5e-6 (y by 1.4e-12 at most) with its warm seeds rounded once
+# more in f32 (tests/test_torch_hermitian.py::
+# test_one_f32_rounding_of_the_warm_seeds_moves_stats_k).  5e:
+# the known answers; a model with an LMI or Hermitian block of d <= 4 is
+# held to the CPU at HERM_CPU_LIMIT, an octonion one at HERM_EXACT_LIMIT
+# (f64 with no f32 stage; the JAX package alone moves the d = 8
+# trajectory by 5.4e-8 under one rounding of b,
+# tests/test_torch_hermitian.py).  bench_accuracy's complex and quaternion
+# SDPs: b'y within HERM_OBJ_LIMIT of the CPU; the JAX package moves it by
+# at most 1.9e-15 under one or two roundings of b (tools/reference_runs.py
+# herm), and the port's CPU lies 3e-16 from it.
+HERM_SHAPE = (32, 2, 64, 16)  # S, d, n, m: bench_hermitian.py:107
+HERM_ITERATIONS = 30
+HERM_K_LIMIT = 1e-5
+HERM_Y_LIMIT = 1e-9
+HERM_CPU_LIMIT = 1e-6
+HERM_EXACT_LIMIT = 1e-7
+HERM_OBJ_LIMIT = 1e-12
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # float32 outside the tensor cores, TF32 and float64 on the tensor cores,
 # and device memory.
@@ -1703,6 +1747,332 @@ def phase_eq_known_answers(device):
 
 
 # ---------------------------------------------------------------------------
+# The Hermitian cones (phase 4f) and the front ends (phase 5e)
+# ---------------------------------------------------------------------------
+
+
+def rand_hermitian(d, n, rng):
+    """benchmarks/bench_hermitian.py's and bench_accuracy.py's element:
+    component 0 symmetric, the others skew, entries uniform in [-1, 1]."""
+    x = rng.uniform(-1, 1, (d, n, n))
+    x[0] = 0.5 * (x[0] + x[0].T)
+    for k in range(1, d):
+        x[k] = 0.5 * (x[k] - x[k].T)
+    return x
+
+
+def herm_workload(S, d, n, m, seed=0, dtype="float32"):
+    """benchmarks/bench_hermitian.py:27-46 (_herm_workload): S scenarios,
+    each one Hermitian LMI of cone-batch 1, A (S, 1, m, d, n, n), C
+    (S, 1, d, n, n) = I, b (S, m) = A(0.3 I)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    A = np.stack([[[rand_hermitian(d, n, rng) for _ in range(m)]]
+                  for _ in range(S)]).astype(dtype)
+    C = np.zeros((S, 1, d, n, n), dtype)
+    C[:, :, 0] = np.eye(n, dtype=dtype)
+    X0 = np.zeros((S, 1, d, n, n), dtype)
+    X0[:, :, 0] = 0.3 * np.eye(n, dtype=dtype)
+    b = np.einsum("sbvdij,sbdij->sv", A, X0).astype(dtype)
+    return A, C, b
+
+
+def herm_config():
+    """bench_hermitian.py:67-74: 30 fixed iterations, the scaled-k cap 100."""
+    from conex_tpu_torch import SolverConfig
+
+    return SolverConfig(max_iterations=HERM_ITERATIONS, final_centering_steps=0,
+                        inv_sqrt_mu_max=1e15, fixed_iterations=True,
+                        inv_sqrt_mu_cap_scaled=100.0, minimum_mu=1e-15)
+
+
+def herm_args(A, C, b, device):
+    """solve_scenarios' arguments for a Hermitian batch on ``device``,
+    from the identity (HermState with the cold sentinel)."""
+    import numpy as np
+
+    from conex_tpu_torch import convert
+    from conex_tpu_torch.cones.hermitian import make_herm_state
+
+    S = A.shape[0]
+    e = np.zeros(C.shape, A.dtype)
+    e[:, :, 0] = np.eye(A.shape[-1], dtype=A.dtype)
+    ws = convert.tensor(e, device)
+    ws = ws if A.shape[3] == 8 else make_herm_state(ws)
+    one = np.ones(S, A.dtype)
+    return ((convert.hermitian_cone(A, C, device),), (), convert.tensor(b, device),
+            (ws,), convert.scalars(dict(k=0 * one, b_scaling=one, c_scaling=one), device))
+
+
+def herm_batch(label, args, config, cold=False):
+    """One Hermitian batch: the bench validity rule (every scenario runs
+    the configured iterations with no factorization failure, y finite) and
+    Newton it/s, best of 3 (b moved a little each time, as bench.py does);
+    ``cold`` forces the cold estimator (cones/hermitian.py FORCE_COLD)."""
+    import torch
+
+    from conex_tpu_torch import solve_scenarios
+    from conex_tpu_torch.cones import hermitian
+
+    blocks, eqs, b, ws, scalars = args
+    hermitian.FORCE_COLD = cold
+    try:
+        t0 = time.perf_counter()
+        res = solve_scenarios(blocks, eqs, b, ws, scalars, config)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        iters = res.num_iterations.cpu()
+        fails = int(res.fail.sum())
+        if not ((iters == config.max_iterations).all() and fails == 0):
+            fail(f"4f {label}: iterations {iters.min()}-{iters.max()}, failures "
+                 f"{fails}: the bench validity rule needs {config.max_iterations} "
+                 "iterations and no failure in every scenario")
+        if res.y.shape != b.shape or not torch.isfinite(res.y).all():
+            fail(f"4f {label}: y is not finite of shape {tuple(b.shape)}")
+        best = float("inf")
+        for rep in range(3):
+            bv = b * (1.0 + 1e-6 * (rep + 1))
+            t0 = time.perf_counter()
+            solve_scenarios(blocks, eqs, bv, ws, scalars, config)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+    finally:
+        hermitian.FORCE_COLD = False
+    total = int(iters.sum())
+    log(f"[4f hermitian] {label}: all {len(iters)} scenarios ran {config.max_iterations} "
+        f"iterations, no failure; first solve {first:.3f} s; Newton it/s "
+        f"{total / best:.2f} (best of 3: {best * 1e3:.3f} ms)")
+    return best, total
+
+
+def phase_herm(device):
+    """4f: bench_hermitian.py's batch (S = 32 complex LMIs, n = 64, m = 16,
+    f32, 30 fixed iterations) warm and cold, the same at d = 4, launches per
+    iteration and busy share; then a small f64 batch, card against CPU."""
+    import numpy as np
+
+    from conex_tpu_torch import convert, solve_scenarios
+    from conex_tpu_torch.cones import psd_schur
+    from conex_tpu_torch.parallel import fused_socp
+
+    start = time.perf_counter()
+    S, d, n, m = HERM_SHAPE
+    config = herm_config()
+    t0 = time.perf_counter()
+    args = herm_args(*herm_workload(S, d, n, m), device)
+    log(f"[4f hermitian] S={S} Hermitian LMIs over d={d} (n={n}, m={m}, f32) built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    psd_schur.schur_kernel.launches = 0
+    fused_socp.solve_socp_kernel.launches = 0
+    warm, total = herm_batch("warm (HermState seeds)", args, config)
+    if psd_schur.schur_kernel.launches or fused_socp.solve_socp_kernel.launches:
+        fail("4f: K1 or K2 launched on the Hermitian path")
+    cold, _ = herm_batch("cold (FORCE_COLD)", args, config, cold=True)
+    log(f"[4f hermitian] warm over cold: {cold / warm:.3f}x")
+    quat, _ = herm_batch("d=4 (quaternions), warm", herm_args(
+        *herm_workload(S, 4, n, m), device), config)
+    device_ms, launches, top = device_profile(lambda: solve_scenarios(*args, config))
+    log(f"[4f hermitian] one profiled warm solve: {launches} launches "
+        f"({launches / config.max_iterations:.1f} per iteration), device-kernel time "
+        f"{device_ms:.3f} ms, busy {100 * device_ms / (warm * 1e3):.1f}% of the "
+        "unprofiled wall")
+    for ms, count, key in top[:5]:
+        log(f"[4f hermitian]   {ms:9.3f} ms x{count:<6} {key[:90]}")
+
+    # A small f64 batch on the card against the CPU (the same config).
+    A, C, b = herm_workload(4, d, 8, 4, seed=1, dtype="float64")
+    out = [convert.to_numpy(solve_scenarios(*herm_args(A, C, b, dev), config))
+           for dev in (device, "cpu")]
+    g, c = out
+    dk = float(np.max(np.abs(g.stats_k - c.stats_k) / np.abs(c.stats_k)))
+    dy = float(np.max(np.abs(g.y - c.y) / (np.abs(c.y) + 1e-9)))
+    log(f"[4f hermitian] small f64 batch (S=4, d={d}, n=8, m=4) card vs CPU: max rel "
+        f"diff stats_k {dk:.3e} (limit {HERM_K_LIMIT}), y {dy:.3e} (limit "
+        f"{HERM_Y_LIMIT})")
+    if not (g.num_iterations == c.num_iterations).all() or g.fail.any():
+        fail("4f small f64 run: card and CPU disagree on iterations or failures")
+    if not (dk <= HERM_K_LIMIT and dy <= HERM_Y_LIMIT):
+        fail("4f small f64 run: card and CPU trajectories disagree")
+    log(f"[4f hermitian] phase {time.perf_counter() - start:.1f} s")
+
+
+def tridiagonal_lmi(d, device):
+    """tests/test_interface.py::test_solve_hermitian_lmi_known_solution
+    through Conex: a tridiagonal Hermitian LMI of order 3 whose optimum is
+    y = -1."""
+    import numpy as np
+
+    from conex_tpu_torch.interface import Conex
+
+    order = 3
+    prog = Conex(order - 1, device=device)
+    con = prog.NewLinearMatrixInequality(order, d)
+    for i in range(order - 1):
+        prog.UpdateLinearOperator(con, -1.0, i, i + 1, i, d - 1)
+    for i in range(order):
+        prog.UpdateAffineTerm(con, 2.0 if i == 1 else 1.0, i, i, 0)
+    return prog, prog.Maximize(-np.ones(order - 1))
+
+
+def octonion_program(device):
+    """tests/test_hermitian.py::test_octonion_sdp_solves (seed 4, n = 3,
+    m = 2) as a Program on ``device``, and its objective."""
+    import numpy as np
+
+    from conex_tpu_torch import Program
+
+    rng = np.random.default_rng(4)
+    n, m = 3, 2
+    A = np.stack([rand_hermitian(8, n, rng) for _ in range(m)])
+    C = np.zeros((8, n, n))
+    C[0] = np.eye(n) * 10.0
+    X0 = np.zeros((8, n, n))
+    X0[0] = np.eye(n)
+    prog = Program(m, device=device)
+    prog.add_hermitian_constraint(A, C)
+    return prog, np.einsum("vdij,dij->v", A, X0)
+
+
+def herm_accuracy_program(dim, device):
+    """bench_accuracy.py:204-245 (run_hermitian): one Hermitian LMI over
+    the algebra of dimension ``dim`` (seed 10 + dim, n = 16, m = 8, C = I)
+    as a Program on ``device``, b = its feasible objective, and the
+    configuration (mu target 1e-8, 100 iterations)."""
+    import numpy as np
+
+    from conex_tpu_torch import Program, SolverConfig
+
+    rng = np.random.default_rng(10 + dim)
+    n, m = 16, 8
+    A = np.stack([rand_hermitian(dim, n, rng) for _ in range(m)])
+    C = np.zeros((dim, n, n))
+    C[0] = np.eye(n)
+    prog = Program(m, device=device)
+    prog.add_hermitian_constraint(A, C)
+    config = SolverConfig(max_iterations=100, inv_sqrt_mu_max=1.0 / np.sqrt(1e-8))
+    return prog, prog.get_feasible_objective(), config
+
+
+def phase_front_ends(device):
+    """5e: the Hermitian known answers and the front ends on the card
+    against the CPU; returns K1's launches on the d = 1 LMI."""
+    from unittest import mock
+
+    import numpy as np
+
+    from conex_tpu_torch import SolverConfig
+    from conex_tpu_torch.cones import psd_schur
+    from conex_tpu_torch.sedumi import solve_sedumi
+    from conex_tpu_torch.solver import kkt
+
+    start = time.perf_counter()
+    k1 = 0
+    for d in (1, 2, 4, 8):
+        psd_schur.schur_kernel.launches = 0
+        with mock.patch.object(kkt, "factor", wraps=kkt.factor) as factor:
+            prog, sol = tridiagonal_lmi(d, device)
+        launches, passes = psd_schur.schur_kernel.launches, factor.call_count
+        _, cpu = tridiagonal_lmi(d, "cpu")
+        e_ans = float(np.linalg.norm(sol.y + 1.0))
+        e_cpu = float(np.abs(sol.y - cpu.y).max())
+        limit = HERM_CPU_LIMIT if d < 8 else HERM_EXACT_LIMIT
+        log(f"[5e front ends] Conex tridiagonal Hermitian LMI, d={d}: solved "
+            f"{sol.status} in {prog._result.num_iterations} iterations, |y + 1| "
+            f"{e_ans:.3e} (limit 1e-5), max |card - CPU| {e_cpu:.3e} (limit {limit}); "
+            f"K1 launches {launches} in {passes} KKT factors")
+        if not (sol.status and cpu.status and e_ans <= 1e-5 and e_cpu <= limit):
+            fail(f"5e: the d = {d} tridiagonal LMI is not y = -1 on the card")
+        if d == 1 and not (launches == passes and launches >= prog._result.num_iterations):
+            fail("5e: K1 did not launch once per KKT assembly on the d = 1 LMI")
+        if d > 1 and launches:
+            fail("5e: K1 launched on a Hermitian LMI")
+        k1 += launches
+
+    ys = {}
+    for where in ("card", "cpu"):
+        prog, b = octonion_program(device if where == "card" else "cpu")
+        res = prog.solve(b, SolverConfig(max_iterations=60))
+        mu = 1.0 / res.stats_inv_sqrt_mu ** 2
+        if not (res.solved and np.all(np.diff(mu) <= 1e-9)):
+            fail(f"5e: the octonion SDP is not solved with a falling mu on the {where}")
+        ys[where] = (res.y, res.num_iterations)
+    e_oct = float(np.abs(ys["card"][0] - ys["cpu"][0]).max() / np.abs(ys["cpu"][0]).max())
+    log(f"[5e front ends] octonion SDP (n=3, m=2): solved in {ys['card'][1]} iterations "
+        f"(CPU {ys['cpu'][1]}), y {ys['card'][0].tolist()}, relative |card - CPU| "
+        f"{e_oct:.3e} (limit {HERM_EXACT_LIMIT})")
+    if not (e_oct <= HERM_EXACT_LIMIT and ys["card"][1] == ys["cpu"][1]):
+        fail("5e: the octonion SDP differs between card and CPU")
+
+    for dim, name in ((2, "complex"), (4, "quaternion")):
+        out = {}
+        for where in ("card", "cpu"):
+            prog, b, config = herm_accuracy_program(dim, device if where == "card" else "cpu")
+            t0 = time.perf_counter()
+            res = prog.solve(b, config)
+            wall = time.perf_counter() - t0
+            if not res.solved:
+                fail(f"5e: bench_accuracy's {name} Hermitian SDP is not solved on the {where}")
+            out[where] = (float(b @ res.y), res.num_iterations, wall,
+                          float(1.0 / res.stats_inv_sqrt_mu[-1] ** 2))
+        by, by_cpu = out["card"][0], out["cpu"][0]
+        d_obj = abs(by - by_cpu) / abs(by_cpu)
+        log(f"[5e front ends] bench_accuracy {name} (n=16, m=8, f64, mu target 1e-8): "
+            f"card {out['card'][1]} iterations in {out['card'][2] * 1e3:.1f} ms, final mu "
+            f"{out['card'][3]:.3e}; b'y card {by!r}, CPU {by_cpu!r} ({out['cpu'][1]} "
+            f"iterations), relative difference {d_obj:.3e} (limit {HERM_OBJ_LIMIT})")
+        if not d_obj <= HERM_OBJ_LIMIT:
+            fail(f"5e: bench_accuracy's {name} SDP: card and CPU objectives differ")
+
+    A, b, c, K = sedumi_all_cone_types()
+    got = {}
+    for where in ("card", "cpu"):
+        x, y, info = solve_sedumi(A, b, c, K, device=device if where == "card" else "cpu")
+        got[where] = (x, y, info)
+    x, y, info = got["card"]
+    X = x[-9:].reshape(3, 3)
+    e_feas = float(np.linalg.norm(A @ x - b))
+    e_gap = float(abs(c @ x - b @ y))
+    lam = float(np.linalg.eigvalsh(0.5 * (X + X.T)).min())
+    e_cpu = float(np.abs(y - got["cpu"][1]).max() / np.abs(got["cpu"][1]).max())
+    log(f"[5e front ends] solve_sedumi f + l + q + q + s: {info}; ||Ax - b|| {e_feas:.3e} "
+        f"(limit 1e-4), |c'x - b'y| {e_gap:.3e} (limit 1e-3), lambda_min(X) {lam:.3e} "
+        f"(limit -1e-6), y relative |card - CPU| {e_cpu:.3e} (limit {HERM_CPU_LIMIT})")
+    if not (info["solved"] and info == got["cpu"][2] and e_feas < 1e-4 and e_gap < 1e-3
+            and lam >= -1e-6 and e_cpu <= HERM_CPU_LIMIT):
+        fail("5e: solve_sedumi's all-cone-types problem does not hold on the card")
+    log(f"[5e front ends] phase {time.perf_counter() - start:.1f} s")
+    return k1
+
+
+def sedumi_all_cone_types():
+    """tests/test_sedumi.py::test_sedumi_all_cone_types_combined's problem:
+    (A, b, c, K) with f + l + two q blocks + an s block."""
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    m = 4
+    nf, nl, q1, q2, ns = 1, 3, 3, 4, 3
+    A = rng.uniform(-1, 1, (m, nf + nl + q1 + q2 + ns * ns))
+    xf = rng.uniform(-1, 1, nf)
+    xl = np.abs(rng.uniform(0.2, 1, nl))
+    xq1 = np.concatenate([[1.0], rng.uniform(-0.2, 0.2, q1 - 1)])
+    xq2 = np.concatenate([[1.0], rng.uniform(-0.2, 0.2, q2 - 1)])
+    Xs = rng.uniform(-1, 1, (ns, ns))
+    Xs = Xs @ Xs.T + 0.2 * np.eye(ns)
+    b = A @ np.concatenate([xf, xl, xq1, xq2, Xs.reshape(-1)])
+    yref = rng.uniform(-0.5, 0.5, m)
+    sl = np.concatenate([
+        np.zeros(nf),
+        np.abs(rng.uniform(0.2, 1, nl)),
+        np.concatenate([[1.2], rng.uniform(-0.2, 0.2, q1 - 1)]),
+        np.concatenate([[1.2], rng.uniform(-0.2, 0.2, q2 - 1)]),
+        (2.0 * np.eye(ns)).reshape(-1),
+    ])
+    return A, b, A.T @ yref + sl, dict(f=nf, l=nl, q=[q1, q2], s=[ns])
+
+
+# ---------------------------------------------------------------------------
 # The Schur-phase probes (kernels K3-K6)
 # ---------------------------------------------------------------------------
 
@@ -1919,6 +2289,7 @@ def phase_probe_entry_points():
 
 
 def main():
+    start = time.perf_counter()
     card = card_name_and_power_limit()
     log(f"[1 card] {card}")
     import torch
@@ -1949,10 +2320,12 @@ def main():
     phase_lp_path(device)
     schur["path_launches"] = {"4": schur["launches"], "4d": phase_eq_sdp(device)}
     phase_qp(device)
+    phase_herm(device)
     phase_known_answer(device)
     phase_soc_known_answer(device)
     phase_lp_known_answer(device)
     phase_eq_known_answers(device)
+    schur["path_launches"]["5e"] = phase_front_ends(device)
     for name, n in phase_probe_entry_points().items():
         probes[name]["launches"] = n
 
@@ -1969,6 +2342,8 @@ def main():
             "path_launches")
     optional = ("plan", "path_launches")
     log(LIBRARY_NOTE)
+    log(f"[end] every phase passed in {time.perf_counter() - start:.1f} s, the build "
+        "included")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys
                                    if k not in optional or k in kern}
                                   for kern in kernels]}), flush=True)

@@ -8,7 +8,9 @@ SOC cone on the general path, and ``parallel.fused_socp``, the whole
 solve as one CUDA kernel, ``csrc/fused_socp.cu``), the LP cone with
 the line-search mu update, and the indefinite-KKT half: equality
 constraints, quadratic costs and Q-weighted quadratic cones, with the
-clamped LDLT and QR KKT modes.  Each kernel runs on the
+clamped LDLT and QR KKT modes, the Hermitian PSD cones over the complex
+numbers, quaternions and octonions, and the two front ends
+(``interface.Conex`` and ``sedumi.solve_sedumi``).  Each kernel runs on the
 card and its plain PyTorch twin on the CPU.  The package imports torch and
 numpy, never jax.
 """
@@ -23,6 +25,7 @@ from .config import (
     SolverConfig,
 )
 from .cones.equality import EqualityBlock
+from .cones.hermitian import HermitianCone
 from .cones.lp import LinearCone
 from .cones.psd import DenseLMICone
 from .cones.qcost import QuadraticCost
@@ -40,6 +43,7 @@ __all__ = [
     "WARMSTART",
     "DenseLMICone",
     "EqualityBlock",
+    "HermitianCone",
     "LinearCone",
     "Program",
     "QuadraticCone",

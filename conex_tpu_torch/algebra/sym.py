@@ -1,9 +1,11 @@
-"""Dense symmetric-matrix helpers on the solver's main path.
+"""Dense symmetric-matrix helpers: exponentials and eigenvalue estimates.
 
-Twin of the main-path subset of ``conex_tpu/algebra/sym.py``: the Taylor
-exponential of the geodesic step and the matmul-only extreme-eigenvalue
-estimators of the PSD cone (the cold squaring estimator and the warm power
-iteration).  Everything broadcasts over leading batch axes.
+Twin of ``conex_tpu/algebra/sym.py``: the Taylor exponential of the
+geodesic step, the matmul-only extreme-eigenvalue estimators of the PSD and
+Hermitian cones (the cold squaring estimator and the warm power
+iteration), and the reference's Pade exponential and asymmetric Lanczos,
+which the solve does not call.  Everything but the Lanczos broadcasts over
+leading batch axes.
 
 The float32 stages on float64 inputs are kept exactly as the JAX package
 has them (eigenvector estimates in float32, Rayleigh quotients in the
@@ -14,6 +16,22 @@ places.  The matrix products are plain ``torch.matmul``.
 from __future__ import annotations
 
 import torch
+
+
+def expm_pade(A: torch.Tensor) -> torch.Tensor:
+    """Pade(3,3)-style rational approximation of exp(A).
+
+    reference: ComputeWeightedPowers + ExponentialMapPadeApproximation
+    (exponential_map_pade.cc:10-32): with b = [120, 60, 12, 1],
+    U = A (b3 A^2 + b1 I), V = b2 A^2 + b0 I, exp(A) ~ (V - U)^{-1}(V + U).
+    Batched over leading axes.
+    """
+    n = A.shape[-1]
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    A2 = A @ A
+    U = A @ (A2 + 60.0 * eye)
+    V = 12.0 * A2 + 120.0 * eye
+    return torch.linalg.solve(V - U, V + U)
 
 
 def expm_taylor(A: torch.Tensor, degree: int = 8, squarings: int = 3):
@@ -33,6 +51,65 @@ def expm_taylor(A: torch.Tensor, degree: int = 8, squarings: int = 3):
     for _ in range(squarings):
         Y = Y @ Y
     return Y
+
+
+def _pair_ip(V, U):
+    """<V, U> = V[:, 0] . U[:, 1]: the two-column polynomial inner product.
+
+    reference: inner_product (approximate_eigenvalues.cc:173-176).
+    """
+    return torch.dot(V[:, 0], U[:, 1])
+
+
+def asymmetric_lanczos(WS, W, r, num_iter: int):
+    """Eigenvalue estimates of WS (similar to symmetric W^{1/2} S W^{1/2}),
+    for one (n, n) matrix.
+
+    reference: AsymmetricLanczos (approximate_eigenvalues.cc:178-239).
+    Tracks V = [p(WS) W r, p(WS)^T r] and builds the Jacobi (tridiagonal)
+    matrix of the induced inner product; returns its eigenvalues,
+    ascending.  The reference breaks when beta^2 < 1e-6; as in the JAX
+    package the loop runs its full length under a mask instead: once
+    inactive, it repeats alpha_0 on the diagonal (a Ritz value inside the
+    converged spectrum interval) with zero off-diagonals, which leaves the
+    extreme eigenvalues those of the truncated matrix.
+    """
+    V = torch.stack([W @ r, r], dim=1)
+    V = V / torch.sqrt(_pair_ip(V, V))
+    U = torch.stack([WS @ V[:, 0], WS.T @ V[:, 1]], dim=1)
+    alpha0 = _pair_ip(V, U)
+    U = U - alpha0 * V
+    if num_iter == 1:
+        return alpha0[None]
+
+    Vprev = V
+    active = torch.ones((), dtype=torch.bool, device=WS.device)
+    alphas, betas = [alpha0], []
+    for _ in range(num_iter - 1):
+        beta_sq = _pair_ip(U, U)
+        go = active & (beta_sq >= 1e-6)
+        beta = torch.sqrt(torch.clamp(beta_sq, min=1e-300))
+        V_new = U / beta
+        U_new = torch.stack([WS @ V_new[:, 0], WS.T @ V_new[:, 1]], dim=1)
+        alpha = _pair_ip(V_new, U_new)
+        U_new = U_new - alpha * V_new - beta * V
+        V, Vprev, U = (torch.where(go, V_new, V), torch.where(go, V, Vprev),
+                       torch.where(go, U_new, U))
+        alphas.append(torch.where(go, alpha, alpha0))
+        betas.append(torch.where(go, beta, torch.zeros_like(beta)))
+        active = go
+    # The dense tridiagonal matrix: num_iter is the Lanczos depth, small.
+    Tri = (torch.diag(torch.stack(alphas)) + torch.diag(torch.stack(betas), 1)
+           + torch.diag(torch.stack(betas), -1))
+    return torch.linalg.eigvalsh(Tri)
+
+
+def approximate_eigenvalues(WS, W, r, num_iter: int):
+    """Dispatcher (reference approximate_eigenvalues.cc:241-256): n = 1
+    inputs are returned unchanged; otherwise asymmetric Lanczos."""
+    if WS.shape[0] == 1:
+        return WS[0]
+    return asymmetric_lanczos(WS, W, r, num_iter)
 
 
 def _fro(X):
@@ -102,6 +179,20 @@ def extreme_eigenvalues_seeded(M, num_squarings: int = 9):
     lam_lo, lam_hi = sig - lo_s, hi_s - sig
     lam = torch.stack([lam_lo, lam_hi], dim=-1)
     return lam_lo, lam_hi, (vhi, uhi, vlo, ulo), lam
+
+
+def extreme_eigenvalues(M, num_squarings: int = 9):
+    """(lam_min, lam_max) of a matrix with real spectrum (similar to a
+    symmetric matrix, such as WS = W S with W PSD), cold: the estimates of
+    extreme_eigenvalues_seeded without the seeds.
+
+    Replaces the reference's Lanczos + tridiagonal-eigenvalue pipeline
+    (psd_constraint.cc:63-77) for the spectrum extremes.  The shift comes
+    from a squaring pass on M @ M in f32 (on f64 inputs) and is tight, 1.05
+    rho(M), which keeps clustered spectra accurate.
+    """
+    lam_lo, lam_hi, _, _ = extreme_eigenvalues_seeded(M, num_squarings)
+    return lam_lo, lam_hi
 
 
 def extreme_eigenvalues_warm(M, vhi, uhi, vlo, ulo, lam_prev,

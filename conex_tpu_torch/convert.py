@@ -2,8 +2,9 @@
 
 The JAX package's data and state convert to numpy with ``np.asarray``
 (cone tensors ``LinearCone.A/c``, ``DenseLMICone.A/C``, ``SOCCone.A/c``,
-``QuadraticCone.A/c/Q``, ``QuadraticCost.Q`` and ``EqualityBlock.A/b``,
-``PSDState`` fields, the init scalars); these helpers turn such numpy arrays into the
+``HermitianCone.A/C``, ``QuadraticCone.A/c/Q``, ``QuadraticCost.Q`` and
+``EqualityBlock.A/b``, ``PSDState`` and ``HermState`` fields or an
+octonion cone's bare iterate, the init scalars); these helpers turn such numpy arrays into the
 port's tensors on a given device, and a port ``SolveResult`` or
 ``FusedSOCPResult`` back into numpy (``to_numpy``).  The field names and
 layouts are the JAX package's, with the scenario axis first.
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from .cones.equality import EqualityBlock
+from .cones.hermitian import HermitianCone, HermState
 from .cones.lp import LinearCone
 from .cones.psd import DenseLMICone, PSDState
 from .cones.qcost import QuadraticCost
@@ -35,6 +37,11 @@ def linear_cone(A, c, device=None, vars_=None) -> LinearCone:
 def lmi_cone(A, C, device=None) -> DenseLMICone:
     """DenseLMICone from A (S, B, v, n, n) and C (S, B, n, n)."""
     return DenseLMICone(A=tensor(A, device), C=tensor(C, device))
+
+
+def hermitian_cone(A, C, device=None, vars_=None) -> HermitianCone:
+    """HermitianCone from A (S, B, v, d, n, n) and C (S, B, d, n, n)."""
+    return HermitianCone(A=tensor(A, device), C=tensor(C, device), vars_=vars_)
 
 
 def soc_cone(A, c, device=None) -> SOCCone:
@@ -64,6 +71,16 @@ def psd_state(state, device=None) -> PSDState:
     """PSDState from any sequence of its six fields (w, vhi, uhi, vlo, ulo,
     lam) as arrays, such as a JAX ``PSDState`` mapped through np.asarray."""
     return PSDState(*(tensor(x, device) for x in state))
+
+
+def herm_state(state, device=None):
+    """A Hermitian cone's state: a HermState from any sequence of its six
+    fields (w, vhi, uhi, vlo, ulo, lam) as arrays, such as a JAX
+    ``HermState`` mapped through np.asarray, or the bare (S, B, 8, n, n)
+    iterate of an octonion cone."""
+    if isinstance(state, (tuple, list)):
+        return HermState(*(tensor(x, device) for x in state))
+    return tensor(state, device)
 
 
 def scalars(init_scalars, device=None) -> dict:

@@ -2,12 +2,12 @@
 quadratic costs.
 
 Twin of ``conex_tpu/program.py`` for dense programs: collect linear,
-Lorentz-cone, Q-weighted quadratic-cone and dense LMI constraints,
-quadratic costs and their epigraphs, and affine equalities; update cone
-data in place, solve coldstart or warmstart, read back the dual variables
-(cones and equalities), and save or load the warmstart state.  Hermitian
-cones and sparse variable subsets (the supernodal KKT path) come later
-(ROADMAP.md queue 1).  A Program runs on one device, given as
+Lorentz-cone, Q-weighted quadratic-cone, dense LMI and Hermitian LMI
+constraints, quadratic costs and their epigraphs, and affine equalities;
+update cone data in place, solve coldstart or warmstart, read back the dual
+variables (cones and equalities), and save or load the warmstart state.
+Sparse variable subsets (the supernodal KKT path) come later (ROADMAP.md
+queue 1).  A Program runs on one device, given as
 ``device=``: the card (``"cuda"``) unless the caller asks for ``"cpu"``.
 """
 
@@ -21,6 +21,7 @@ import torch
 
 from .config import COLDSTART, KKT_SOLVER_LDLT, KKT_SOLVER_LLT, WARMSTART, SolverConfig, not_ported
 from .cones.equality import EqualityBlock
+from .cones.hermitian import HermitianCone, HermState
 from .cones.lp import LinearCone
 from .cones.psd import DenseLMICone, PSDState
 from .cones.qcost import QuadraticCost
@@ -62,15 +63,16 @@ class Result:
 
 class Program:
     """A conic program: maximize b'y (- 1/2 y'Q y)  s.t.  c - A y in K,
-    A_eq y = b_eq; K a product of linear, (Q-weighted) Lorentz and LMI
-    cones."""
+    A_eq y = b_eq; K a product of linear, (Q-weighted) Lorentz, LMI and
+    Hermitian LMI cones."""
 
     def __init__(self, num_vars: int, dtype=torch.float64, device="cuda"):
         self.num_vars = int(num_vars)
         self.dtype = dtype
         self.device = torch.device(device)
         self._blocks: List[Union[LinearCone, SOCCone, QuadraticCone,
-                                 DenseLMICone, QuadraticCost]] = []
+                                 DenseLMICone, HermitianCone,
+                                 QuadraticCost]] = []
         self._eq_blocks: List[EqualityBlock] = []
         self._dual_size = 0
         self._has_quadratic_cost = False
@@ -154,6 +156,48 @@ class Program:
         self._check_variables(variables, A.shape[1])
         self._blocks.append(
             DenseLMICone(A=self._tensor(A)[None], C=self._tensor(C)[None])
+        )
+        return len(self._blocks) - 1
+
+    def add_hermitian_constraint(self, A, C, variables=None):
+        """C - sum_i y_i A_i PSD in a hypercomplex Hermitian algebra.
+
+        reference: HermitianPsdConstraint<T> (hermitian_psd.h).  Formats:
+        - complex dtype A: (v, n, n), C: (n, n) -> complex algebra (d = 2)
+        - real stacked A: (v, d, n, n), C: (d, n, n), d in {1, 2, 4, 8}
+        - batched real stacked A: (B, v, d, n, n), C: (B, d, n, n)
+        Component 0 must be symmetric, components >= 1 skew-symmetric.
+        Octonions (d = 8) require n <= 3 (the Albert algebra).
+        """
+        A = np.asarray(A)
+        C = np.asarray(C)
+        if np.iscomplexobj(A):
+            A = np.stack([A.real, A.imag], axis=-3)
+            C = np.stack([np.asarray(C).real, np.asarray(C).imag], axis=-3)
+        A = A.astype(np.float64)
+        C = C.astype(np.float64)
+        if A.ndim == 4:
+            A = A[None]
+            C = C[None]
+        if A.ndim != 5 or C.ndim != 4 or A.shape[2:] != C.shape[1:] or A.shape[0] != C.shape[0]:
+            raise ValueError(
+                "Hermitian LMI shapes must be A:(B,v,d,n,n), C:(B,d,n,n)"
+            )
+        d = A.shape[2]
+        if d not in (1, 2, 4, 8):
+            raise ValueError("algebra dimension must be 1, 2, 4, or 8")
+        if d == 8 and A.shape[-1] > 3:
+            raise ValueError("octonion Hermitian cones require order <= 3")
+        for M in (A.reshape(-1, d, *A.shape[-2:]), C.reshape(-1, d, *C.shape[-2:])):
+            if not np.allclose(M[:, 0], np.swapaxes(M[:, 0], -1, -2)):
+                raise ValueError("component 0 must be symmetric")
+            if d > 1 and not np.allclose(
+                M[:, 1:], -np.swapaxes(M[:, 1:], -1, -2)
+            ):
+                raise ValueError("components >= 1 must be skew-symmetric")
+        self._check_variables(variables, A.shape[1])
+        self._blocks.append(
+            HermitianCone(A=self._tensor(A)[None], C=self._tensor(C)[None])
         )
         return len(self._blocks) - 1
 
@@ -250,10 +294,12 @@ class Program:
         reference: Program::UpdateLinearOperatorOfConstraint
         (cone_program.h:147-159) with per-cone semantics of
         UpdateLinearOperator (linear_constraint.cc:207-216,
-        soc_constraint.cc:314-324).  The JAX index gains the scenario
-        axis: A[0, row, variable] (LP), A[0, 0, row, variable] (SOC, the
-        first cone of the block), A[0, 0, variable, row, col] and its
-        mirror (LMI).
+        soc_constraint.cc:314-324, hermitian_psd.cc:248-283).  The JAX
+        index gains the scenario axis: A[0, row, variable] (LP),
+        A[0, 0, row, variable] (SOC, the first cone of the block),
+        A[0, 0, variable, row, col] and its mirror (LMI),
+        A[0, 0, variable, d, row, col] and its mirror, negated for d > 0
+        (Hermitian).
         """
         blk = self._blocks[i]
         v = float(value)
@@ -270,6 +316,13 @@ class Program:
                 raise ValueError("use a Hermitian constraint for d > 1")
             A = self._with_entries(blk.A, [((0, 0, variable, row, col), v),
                                            ((0, 0, variable, col, row), v)])
+        elif isinstance(blk, HermitianCone):
+            d = hyper_complex_dim
+            if value != 0 and row == col and d > 0:
+                raise ValueError("imaginary diagonal must be zero")
+            A = self._with_entries(blk.A, [
+                ((0, 0, variable, d, row, col), v),
+                ((0, 0, variable, d, col, row), v if d == 0 else -v)])
         else:
             raise ValueError("constraint does not support operator updates")
         self._blocks[i] = dataclasses.replace(blk, A=A)
@@ -291,6 +344,11 @@ class Program:
         elif isinstance(blk, DenseLMICone):
             blk = dataclasses.replace(blk, C=self._with_entries(
                 blk.C, [((0, 0, row, col), v), ((0, 0, col, row), v)]))
+        elif isinstance(blk, HermitianCone):
+            d = hyper_complex_dim
+            blk = dataclasses.replace(blk, C=self._with_entries(
+                blk.C, [((0, 0, d, row, col), v),
+                        ((0, 0, d, col, row), v if d == 0 else -v)]))
         else:
             raise ValueError("constraint does not support affine updates")
         self._blocks[i] = blk
@@ -399,7 +457,10 @@ class Program:
     def save_state(self) -> dict:
         """Serializable warmstart checkpoint: the cone iterates + scalings,
         as plain numpy arrays in the JAX package's layout (no scenario
-        axis), storable with np.savez."""
+        axis), storable with np.savez: an array per linear, SOC, quadratic
+        or octonion block, the six fields of a PSDState or HermState (the
+        port's NamedTuple, with the JAX one's fields) per LMI or Hermitian
+        block of d <= 4."""
         if self._ws is None:
             raise RuntimeError("no state yet: solve first")
         return dict(
@@ -416,6 +477,8 @@ class Program:
         for blk, w in zip(self._blocks, tuple(state["ws"])):
             if isinstance(blk, DenseLMICone):
                 ws.append(PSDState(*(self._tensor(x)[None] for x in w)))
+            elif isinstance(blk, HermitianCone) and not blk.octonion:
+                ws.append(HermState(*(self._tensor(x)[None] for x in w)))
             else:
                 ws.append(self._tensor(w)[None])
         self._ws = tuple(ws)

@@ -165,3 +165,139 @@ def test_divergence_bound_inverse_matches_jax_and_inverts():
     np.testing.assert_allclose(
         tmu.divergence_upper_bound(got, tp, rank).numpy(), dj, rtol=1e-10
     )
+
+
+# ---------------------------------------------------------------------------
+# The rest of algebra/sym.py: Pade exponential, asymmetric Lanczos, the
+# cold extreme_eigenvalues (tests/test_sdp.py's cases through both)
+# ---------------------------------------------------------------------------
+
+
+def _randsym(n, rng, scale=1.0):
+    M = rng.uniform(-1, 1, (n, n)) * scale
+    return 0.5 * (M + M.T)
+
+
+def test_expm_pade_matches_jax():
+    """tests/test_sdp.py::test_expm_pade_matches_scipy and _batched.  Both
+    solve (V - U) X = V + U by LU with partial pivoting (LAPACK getrf and
+    XLA's own), which round alike here: 1e-12."""
+    from scipy.linalg import expm
+
+    rng = np.random.default_rng(0)
+    for n in [1, 2, 5, 8]:
+        A = _randsym(n, rng, scale=0.3)
+        got = tsym.expm_pade(_t(A)).numpy()
+        np.testing.assert_allclose(got, np.asarray(jsym.expm_pade(jnp.asarray(A))),
+                                   rtol=1e-12, atol=1e-14)
+        np.testing.assert_allclose(got, expm(A), atol=1e-6)
+    A = np.stack([_randsym(4, rng, 0.2) for _ in range(3)])
+    got = tsym.expm_pade(_t(A)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jsym.expm_pade(jnp.asarray(A))),
+                               rtol=1e-12, atol=1e-14)
+    for b in range(3):
+        np.testing.assert_allclose(got[b], tsym.expm_pade(_t(A[b])).numpy(), atol=1e-12)
+
+
+def _lanczos_inputs(n=12, seed=2):
+    rng = np.random.default_rng(seed)
+    M = rng.uniform(-1, 1, (n, n))
+    W = M @ M.T + n * np.eye(n)
+    S = _randsym(n, rng)
+    return W @ S, W, S, rng.uniform(-1, 1, n)
+
+
+@pytest.mark.parametrize("num_iter", [1, 6, 12])
+def test_asymmetric_lanczos_matches_jax(num_iter):
+    """tests/test_sdp.py::test_lanczos_extreme_eigenvalues (and depth 1).
+    The tridiagonal's eigenvalues: jax's eigh_tridiagonal (bisection)
+    against LAPACK's syevd on the dense matrix, both to a few ulps of its
+    norm: 1e-12."""
+    WS, W, S, r = _lanczos_inputs()
+    want = np.asarray(jsym.asymmetric_lanczos(*map(jnp.asarray, (WS, W, r)), num_iter))
+    got = tsym.asymmetric_lanczos(*map(_t, (WS, W, r)), num_iter).numpy()
+    assert got.shape == want.shape == (num_iter,)
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12 * np.abs(want).max())
+    if num_iter == 12:
+        L = np.linalg.cholesky(W)
+        true = np.linalg.eigvalsh(L.T @ S @ L)
+        assert got.max() == pytest.approx(true.max(), rel=1e-6)
+        assert got.min() == pytest.approx(true.min(), rel=1e-6)
+
+
+def test_lanczos_early_exit_mask_matches_jax():
+    """tests/test_sdp.py::test_lanczos_early_exit_masking: a rank-2 WS
+    stops after two steps; the masked steps repeat alpha_0 with zero
+    off-diagonals in both."""
+    n = 8
+    W = np.eye(n)
+    S = np.zeros((n, n))
+    S[0, 0], S[1, 1] = 3.0, -2.0
+    r = np.ones(n)
+    want = np.asarray(jsym.asymmetric_lanczos(*map(jnp.asarray, (W @ S, W, r)), n // 2))
+    got = tsym.asymmetric_lanczos(*map(_t, (W @ S, W, r)), n // 2).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+    assert got.max() == pytest.approx(3.0, abs=1e-8)
+    assert got.min() == pytest.approx(-2.0, abs=1e-8)
+    # The mask fired: the padded diagonal repeats alpha_0 (the Ritz value
+    # of the first step), which stands among the eigenvalues.
+    alpha0 = float(r @ S @ r / (r @ r))
+    assert np.isclose(got, alpha0).sum() >= 1
+
+
+def test_approximate_eigenvalues_matches_jax():
+    WS, W, _, r = _lanczos_inputs(n=6, seed=3)
+    for args in ((WS, W, r), (WS[:1, :1], W[:1, :1], r[:1])):
+        want = np.asarray(jsym.approximate_eigenvalues(*map(jnp.asarray, args), 4))
+        got = tsym.approximate_eigenvalues(*map(_t, args), 4).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-14)
+
+
+def test_extreme_eigenvalues_cold_matches_jax_on_clustered_spectra():
+    """tests/test_sdp.py::test_extreme_eigenvalues_clustered through both
+    packages: the same accuracy asserts on the port, and the JAX value.
+    The squaring passes run in f32 on f64 inputs, as in the JAX package;
+    the f64 Rayleigh quotient is second-order in the f32 eigenvector's
+    error.  The bottom of these spectra is crowded (126 uniform values in
+    [0, 0.99]: a dominance ratio of about 1.008 per power step, 512 steps),
+    so the estimate there is not converged and the two packages' f32
+    rounding shows at up to 6.2e-11 of the spectral radius: 1e-9 of it.
+    The top: where it is a cluster of width 1e-6, the f32 eigenvector is a
+    mix inside the cluster that XLA and PyTorch round differently, and the
+    estimate moves inside the cluster (within its width, which the JAX
+    test counts as exact); else 1e-9 of the radius too."""
+    rng = np.random.default_rng(0)
+
+    def make(n, eigs):
+        Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        return Q @ np.diag(eigs) @ Q.T
+
+    def both(M, gap):
+        lo, hi = tsym.extreme_eigenvalues(_t(M))
+        jlo, jhi = jsym.extreme_eigenvalues(jnp.asarray(M))
+        radius = max(abs(float(jlo)), abs(float(jhi)))
+        np.testing.assert_allclose(float(lo), float(jlo), rtol=0, atol=1e-9 * radius)
+        np.testing.assert_allclose(float(hi), float(jhi), rtol=0,
+                                   atol=max(1e-9, gap) * radius)
+        return float(lo), float(hi)
+
+    for n in (32, 64, 128):
+        for gap in (1e-3, 1e-6):
+            eigs = np.concatenate([[1.0, 1.0 - gap], rng.uniform(0.0, 0.99, n - 2)])
+            lo, hi = both(make(n, eigs), gap)
+            assert abs(hi - 1.0) <= max(5e-4, gap), (n, gap)
+            assert abs(lo - eigs.min()) <= 5e-4, (n, gap)
+
+    eigs = np.concatenate([[1.0, 1.0 - 1e-6], rng.uniform(-0.95, 0.95, 62)])
+    lo, hi = both(make(64, eigs), 1e-6)
+    assert abs(hi - 1.0) <= 1e-5
+    assert abs(lo - eigs.min()) <= 1e-5
+
+    n = 64
+    W = make(n, rng.uniform(0.5, 2.0, n))
+    S = 1e-6 * np.linalg.inv(W) + 1e-9 * make(n, rng.uniform(0, 1, n))
+    WS = W @ S
+    true = np.sort(np.linalg.eigvals(WS).real)
+    lo, hi = both(WS, 0.0)
+    assert abs(hi - true[-1]) / true[-1] <= 1e-2
+    assert abs(lo - true[0]) / true[0] <= 1e-2

@@ -1,8 +1,8 @@
 """What the port's kernel build costs, and where the paths' time goes.
 
-    python3 tools/kernel_costs.py [build] [fma] [profile] [probes] [sdp] [k1] [k2] [lp] [kkt]
+    python3 tools/kernel_costs.py [build] [fma] [profile] [probes] [sdp] [k1] [k2] [lp] [kkt] [herm]
 
-Needs one CUDA card and nvcc; imports nothing of JAX.  Nine parts (all of
+Needs one CUDA card and nvcc; imports nothing of JAX.  Ten parts (all of
 them when none is named), each printing its own lines:
 
 1. build: the nvcc wall time of the library as ``conex_tpu_torch._build``
@@ -62,7 +62,12 @@ them when none is named), each printing its own lines:
 9. kkt: the same profile of the indefinite-KKT path (chip_smoke.py phases
    4d and 4e): one solve of the 256 equality-constrained SDPs (f64, LDLT),
    one LDLT factor and one LDLT solve of their (256, 60, 60) KKT matrices,
-   the QP batch of 64 and the QP of seed 0 through Program.
+   the QP batch of 64 and the QP of seed 0 through Program;
+10. herm: the same profile of the Hermitian path (chip_smoke.py phase 4f:
+   bench_hermitian.py's batch of 32 complex LMIs, n = 64, m = 16, f32, 30
+   fixed iterations) with the warm seeds and with the cold estimator
+   forced, and of the same batch at d = 4, each with its 15 largest
+   kernels and the launches per iteration.
 
 A run of all the parts holds the card for several minutes (part 2 builds
 the library twice); naming parts runs only those, so a question about one
@@ -605,9 +610,28 @@ def part_k2(device):
         del args, want
 
 
+def part_herm(device):
+    from conex_tpu_torch import solve_scenarios
+    from conex_tpu_torch.cones import hermitian
+
+    S, d, n, m = chip_smoke.HERM_SHAPE
+    config = chip_smoke.herm_config()
+    for dim, cold in ((d, False), (d, True), (4, False)):
+        args = chip_smoke.herm_args(*chip_smoke.herm_workload(S, dim, n, m), device)
+        hermitian.FORCE_COLD = cold
+        try:
+            profile(f"Hermitian batch S={S}, d={dim}, n={n}, m={m}, f32, "
+                    f"{'cold (FORCE_COLD)' if cold else 'warm'}",
+                    lambda: solve_scenarios(*args, config),
+                    iterations=config.max_iterations, top=15)
+        finally:
+            hermitian.FORCE_COLD = False
+
+
 PARTS = {"build": lambda device: part_build(), "fma": part_fma,
          "profile": part_profile, "probes": part_probes, "sdp": part_sdp,
-         "k1": part_k1, "k2": part_k2, "lp": part_lp, "kkt": part_kkt}
+         "k1": part_k1, "k2": part_k2, "lp": part_lp, "kkt": part_kkt,
+         "herm": part_herm}
 
 
 def main(argv=None):

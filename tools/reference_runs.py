@@ -1,9 +1,10 @@
 """The JAX package (conex_tpu) on the CPU, on the instances of
-chip_smoke.py's phases 4d and 4e: what the reference reaches there, which
-fixes those phases' iteration limits and accuracy gates.
+chip_smoke.py's phases 4d, 4e and 5e: what the reference reaches there,
+which fixes those phases' iteration limits and accuracy gates.
 
     python3 tools/reference_runs.py eq_sdp [first,last]   # default 0,255
     python3 tools/reference_runs.py qp [iterations,...]   # default 100,200,300
+    python3 tools/reference_runs.py herm
 
 eq_sdp: each seed's equality-constrained SDP (chip_smoke.eq_sdp_instance at
 n = 100, m = 50, p = 10) as one Program, kkt_solver LDLT, 100 iterations:
@@ -14,7 +15,12 @@ each iteration limit: the unsolved seeds, the iteration counts, and the
 largest errors of y against x_opt and of the slack among the solved; then
 seed 0 through Program with b moved by a few units of 2^-52 (how far one
 rounding moves its iteration count), and through
-add_quadratic_cost_epigraph (100 iterations allowed) with the same moves.  Needs jax and imports nothing of the port
+add_quadratic_cost_epigraph (100 iterations allowed) with the same moves.
+herm: bench_accuracy.py's complex and quaternion Hermitian SDPs
+(chip_smoke.herm_accuracy_program's instances, f64, mu target 1e-8) as
+Programs, with b moved by a few units of 2^-52: iterations, solved and
+b'y, and how far b'y moves relative to the unmoved run.  Needs jax and
+imports nothing of the port
 (chip_smoke's instance makers are numpy); runs in f64 on the CPU, a few
 minutes for each part.
 """
@@ -109,6 +115,28 @@ def qp(limits=(100, 200, 300)):
               f"{np.abs(x - xn).max():.3e}, |t - x'Wx/2| {abs(t - 0.5 * x @ Wn @ x):.3e}")
 
 
+def herm():
+    for dim, name in ((2, "complex"), (4, "quaternion")):
+        rng = np.random.default_rng(10 + dim)
+        n, m = 16, 8
+        A = np.stack([chip_smoke.rand_hermitian(dim, n, rng) for _ in range(m)])
+        C = np.zeros((dim, n, n))
+        C[0] = np.eye(n)
+        prog = conex_tpu.Program(m)
+        prog.add_hermitian_constraint(A, C)
+        b = np.asarray(prog.get_feasible_objective())
+        config = conex_tpu.SolverConfig(max_iterations=100,
+                                        inv_sqrt_mu_max=1.0 / np.sqrt(1e-8))
+        runs = []
+        for e in (0, 1, -1, 2, -2):
+            res = prog.solve(b * (1 + e * 2.0**-52), config)
+            runs.append((e, res.num_iterations, bool(res.solved), float(b @ res.y)))
+        by0 = runs[0][3]
+        spread = max(abs(r[3] - by0) / abs(by0) for r in runs)
+        print(f"herm {name} (n={n}, m={m}, f64): (e, iterations, solved, b'y) {runs}; "
+              f"largest relative move of b'y {spread:.3e}", flush=True)
+
+
 def main(argv):
     part, *rest = argv
     numbers = [int(x) for x in rest[0].split(",")] if rest else []
@@ -116,8 +144,10 @@ def main(argv):
         eq_sdp(*numbers)
     elif part == "qp":
         qp(numbers or (100, 200, 300))
+    elif part == "herm":
+        herm()
     else:
-        sys.exit(f"unknown part {part!r}: eq_sdp or qp")
+        sys.exit(f"unknown part {part!r}: eq_sdp, qp or herm")
 
 
 if __name__ == "__main__":
