@@ -110,6 +110,28 @@ Phases, each printing its own lines; any failure exits non-zero:
    workload at d = 4 (quaternions, the same gate), the launches per
    iteration and the busy share of one profiled warm solve; then a small
    f64 batch on the card against the CPU (HERM_K_LIMIT, HERM_Y_LIMIT);
+4g. the supernodal KKT path (Program with variable subsets; K1 once per
+   LMI clique per assembly): which clique ordering ran (the native one,
+   built with g++ from native/clique_ordering.cc, or the Python one);
+   tests/test_compressed.py's two chain LPs (32 and 28 blocks, the second
+   with equality rows: the LDLT) through Program(device="cuda") in f64 on
+   the compressed structure, the sparse and the dense program's y within
+   1e-6 and the sparse one within SPARSE_CPU_LIMIT of the CPU's;
+   tests/test_interface.py's sparse Conex instance (solved, y as on the
+   CPU); tests/test_failure_corpus.py's MPC case (finite, solved as on the
+   CPU); a short f64 LMI chain (N = 8, nc = 4) on the unrolled and the
+   compressed structure against the CPU (SPARSE_K_LIMIT, SPARSE_Y_LIMIT,
+   printed beside what the CPU alone moves under one rounding of b); two
+   compressed factors of one buffer giving the same bits; then
+   benchmarks/bench_sparse.py's workload (chain_program: N LMI cliques of
+   order 8 over 6-variable windows, one instance, f32, 30 fixed
+   iterations, its SolverConfig) at SPARSE_RUNS, the structure switched
+   through program.SCAN_CLIQUE_THRESHOLD as that script does: every run
+   30 iterations without failure and K1 launched once per clique per
+   iteration; per run Newton it/s and the wall of a solve, the launches
+   per iteration, per KKT factor and the busy share of a profiled solve of
+   SPARSE_PROFILE_ITERATIONS iterations; K1's time at the chain's shape
+   (1, 1, 6, 8) against its plain version;
 5. a known answer: a small f64 SDP through Program(device="cuda"), against
    lambda_min(C) and the CPU solve;
 5b. a known SOC answer through Program(device="cuda"): max b'y s.t.
@@ -143,8 +165,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    partials.
 
 The last lines are the whole run's time, the kernels' JSON record (K2's
-and K3-K6's with their plans, K1's with its launches on phases 4, 4d and
-5e; with each kernel's bound:
+and K3-K6's with their plans, K1's with its launches on phases 4, 4d, 4g
+and 5e; with each kernel's bound:
 the larger of its operations over the peak rate of the units that do
 them and its bytes over 3.35 TB/s; every Schur kernel's products run on
 the tensor cores, three TF32 passes per f32 product at 495 TFLOP/s), the
@@ -256,6 +278,32 @@ HERM_Y_LIMIT = 1e-9
 HERM_CPU_LIMIT = 1e-6
 HERM_EXACT_LIMIT = 1e-7
 HERM_OBJ_LIMIT = 1e-12
+# 4g: benchmarks/bench_sparse.py's chain (N LMI cliques of order nc, each
+# over a 6-variable window, overlap 3; one instance, f32, 30 fixed
+# iterations), as (N, nc, structure) runs.  Depth N is the only cut
+# allowed: bench_sparse's N = 200 took 3.78 s per iteration on an H100
+# (113.5 s per solve) and N = 100 2.55 s (PERF.md), so the long run is cut
+# to N = 60.
+SPARSE_RUNS = ((40, 8, "unrolled"), (40, 8, "compressed"), (60, 8, "compressed"))
+SPARSE_ITERATIONS = 30
+SPARSE_PROFILE_ITERATIONS = 2  # the profiled solve of each run
+SPARSE_SMALL = (8, 4)  # N, nc of the f64 chain held to the CPU
+# The f64 chain's limits, card against CPU.  Under one rounding of b the
+# CPU alone moves its stats_k by 3.3e-15 and its y by 3.0e-12 (relative,
+# either structure).  The warm estimator's eigenvector sweep runs in f32 on
+# f64 inputs, and one f32 rounding of its seeds moves the CPU's stats_k by
+# 4.6e-10 (y 3.5e-12); the card's f32 sweep rounds each of its steps
+# otherwise, so stats_k is held as phase 4's small f64 instance of this
+# configuration is (1e-6; a first limit of 1e-8 missed at 2.6e-8, PERF.md),
+# y to 1e-8.
+SPARSE_K_LIMIT = 1e-6
+SPARSE_Y_LIMIT = 1e-8
+# tests/test_compressed.py's chain LPs: the sparse and the dense program's
+# y on the card, as that test holds them; and the sparse program on the
+# card against the CPU (under one rounding of b the CPU alone moves y by
+# 1.5e-10 and 3.9e-12 of its largest entry).
+SPARSE_DENSE_LIMIT = 1e-6
+SPARSE_CPU_LIMIT = 1e-8
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
 # float32 outside the tensor cores, TF32 and float64 on the tensor cores,
 # and device memory.
@@ -1379,21 +1427,25 @@ def phase_lp_known_answer(device):
 
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
                 "cuLaunchKernelEx")
+DEVICE_EVENTS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def device_profile(fn):
     """One call of ``fn`` under torch.profiler: (device-kernel ms, kernel
-    launch calls, the device kernels' profiler events).  A spin kernel
-    goes first and is left out of every count (the trace may miss the
-    first kernel launched in its window); a trace that holds fewer kernels
-    than launch calls is taken again, up to three times."""
-    import torch
-    from torch.autograd import DeviceType
+    launch calls, [(ms, count, name)] of the device kernels, largest
+    first).  The trace is read from its Chrome-trace export (the device's
+    kernel, copy and set events, as key_averages() counts them; launch
+    calls by their runtime and driver API events), which takes a third of
+    the time key_averages() takes on a trace of 10^5 launches.  A spin kernel goes first and is left out of
+    every count (the trace may miss the first kernel launched in its
+    window); a trace that holds fewer kernels than launch calls is taken
+    again, up to three times."""
+    import collections
+    import json
+    import os
+    import tempfile
 
-    def dev_us(e):  # the attribute's name differs between torch versions
-        if hasattr(e, "self_device_time_total"):
-            return e.self_device_time_total
-        return e.self_cuda_time_total
+    import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for attempt in range(3):
@@ -1401,17 +1453,32 @@ def device_profile(fn):
             torch.cuda._sleep(1_000_000)
             fn()
             torch.cuda.synchronize()
-        events = prof.key_averages()
-        kernels = [e for e in events
-                   if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.key]
-        launches = sum(e.count for e in events if e.key in LAUNCH_CALLS) - 1
-        if sum(e.count for e in kernels) >= launches:
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        kernels = collections.defaultdict(lambda: [0.0, 0])
+        launches = -1  # the spin kernel's
+        for e in events:
+            cat, name = e.get("cat"), e.get("name", "")
+            if cat in DEVICE_EVENTS and "spin_kernel" not in name:
+                kernels[name][0] += e.get("dur", 0.0) / 1e3
+                kernels[name][1] += 1
+            elif cat in ("cuda_runtime", "cuda_driver") and name in LAUNCH_CALLS:
+                launches += 1
+        del events
+        if sum(count for _, count in kernels.values()) >= launches:
             break
         log(f"[profile] the trace holds fewer kernels than the {launches} launch "
             "calls; tracing again")
-    device_ms = sum(dev_us(e) for e in kernels) / 1e3
-    kernels = sorted(kernels, key=dev_us, reverse=True)
-    return device_ms, launches, [(dev_us(e) / 1e3, e.count, e.key) for e in kernels]
+    if launches <= 0 or not kernels:
+        fail(f"the profiler's trace holds {launches} launch calls and "
+             f"{len(kernels)} kernels")
+    device_ms = sum(ms for ms, _ in kernels.values())
+    top = sorted(((ms, count, name) for name, (ms, count) in kernels.items()),
+                 reverse=True)
+    return device_ms, launches, top
 
 
 def best_wall(fn, reps=3):
@@ -2230,6 +2297,358 @@ def phase_probe_kernels(device):
     return records
 
 
+def sparse_chain(N, nc, seed=0, dtype="float32"):
+    """benchmarks/bench_sparse.py:35-50's chain_program at one instance:
+    N LMI cliques of order nc, clique i over the 6-variable window from 3i
+    (overlap 3); (A (N, 1, 6, nc, nc), b, number of variables)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    B, w = 1, 6
+    n_vars = 3 * N + w - 3
+    A = rng.uniform(-1, 1, (N, B, w, nc, nc)).astype(dtype)
+    A = 0.5 * (A + np.swapaxes(A, 3, 4))
+    X0 = rng.uniform(-1, 1, (N, B, nc, nc)).astype(dtype)
+    X0 = (np.einsum("sbij,sbkj->sbik", X0, X0) / nc
+          + 0.1 * np.eye(nc, dtype=dtype))
+    b = np.zeros((B, n_vars), dtype)
+    for i in range(N):
+        b[:, 3 * i:3 * i + w] += np.einsum("bvij,bij->bv", A[i], X0[i])
+    return A, b[0], n_vars
+
+
+def sparse_chain_program(A, n_vars, device, dtype):
+    import numpy as np
+
+    from conex_tpu_torch import Program
+
+    N, _, w, nc, _ = A.shape
+    prog = Program(n_vars, dtype=dtype, device=device)
+    for i in range(N):
+        prog.add_lmi_constraint(A[i], np.eye(nc)[None],
+                                variables=list(range(3 * i, 3 * i + w)))
+    return prog
+
+
+def sparse_config(iterations=SPARSE_ITERATIONS):
+    """benchmarks/bench_sparse.py:79-83."""
+    from conex_tpu_torch import SolverConfig
+
+    return SolverConfig(max_iterations=iterations, final_centering_steps=0,
+                        inv_sqrt_mu_max=1e15, fixed_iterations=True,
+                        inv_sqrt_mu_cap_scaled=100.0)
+
+
+class clique_threshold:
+    """Program's structure switch, set on the module as bench_sparse.py
+    does: the compressed structure at any clique count, or never."""
+
+    def __init__(self, structure):
+        self.value = 0 if structure == "compressed" else 10 ** 9
+
+    def __enter__(self):
+        from conex_tpu_torch import program
+
+        self.saved, program.SCAN_CLIQUE_THRESHOLD = (program.SCAN_CLIQUE_THRESHOLD,
+                                                     self.value)
+
+    def __exit__(self, *exc):
+        from conex_tpu_torch import program
+
+        program.SCAN_CLIQUE_THRESHOLD = self.saved
+
+
+def chain_lp(seed, n_blocks, with_equality, device):
+    """tests/test_compressed.py:157-231's chain LP: 3 rows per block over
+    variables (i, i + 1), with 2 equality rows over variables 0-2 or
+    none; (the sparse Program, the dense one, b)."""
+    import numpy as np
+
+    from conex_tpu_torch import Program
+
+    rng = np.random.default_rng(seed)
+    num_vars, rows = n_blocks + 1, 3
+    Af = np.zeros((rows * n_blocks, num_vars))
+    cf = np.zeros(rows * n_blocks)
+    sparse = Program(num_vars, device=device)
+    for i in range(n_blocks):
+        Ai = rng.uniform(-1, 1, (rows, 2))
+        ci = np.abs(rng.uniform(-1, 1, rows)) + 0.1
+        sparse.add_linear_constraint(Ai, ci, variables=[i, i + 1])
+        Af[rows * i:rows * (i + 1), i:i + 2] = Ai
+        cf[rows * i:rows * (i + 1)] = ci
+    dense = Program(num_vars, device=device)
+    dense.add_linear_constraint(Af, cf)
+    Aeq = rng.uniform(-1, 1, (2, 3)) if with_equality else None
+    x0 = np.abs(rng.uniform(-1, 1, rows * n_blocks))
+    x0 *= 0.1 / np.linalg.norm(x0)
+    b = Af.T @ x0
+    if with_equality:
+        for prog in (sparse, dense):
+            prog.add_equality_constraint(Aeq, Aeq @ b[:3], variables=[0, 1, 2])
+    return sparse, dense, b
+
+
+def mpc_program(device):
+    """tests/test_failure_corpus.py:268's T = 3 MPC chain (every block on
+    a variable subset), its b and its configuration."""
+    import numpy as np
+
+    from conex_tpu_torch import KKT_SOLVER_LDLT, Program, SolverConfig
+
+    rng = np.random.default_rng(5)
+    T, nu, nx = 3, 1, 2
+    Ai = rng.uniform(-1, 1, (nx, nx))
+    Bi = rng.uniform(-1, 1, (nx, nu))
+    f = rng.uniform(-1, 1, nx)
+    Hxu = rng.uniform(-1, 1, (2, nu))
+    gxu = rng.uniform(-1, 1, 2)
+
+    def input_vars(i):
+        return list(range(T * nx + i * nu, T * nx + (i + 1) * nu))
+
+    def state_vars(i):
+        return list(range((i - 1) * nx, i * nx))
+
+    prog = Program(T * (nu + nx + 2), device=device)
+    epigraph = T * (nu + nx)
+    for i in range(T):
+        stage = (state_vars(i) if i > 0 else []) + input_vars(i) + state_vars(i + 1)
+        D = np.hstack([Ai, Bi, -np.eye(nx)] if i > 0 else [Bi, -np.eye(nx)])
+        prog.add_equality_constraint(D, f, variables=stage)
+        if 0 < i < T - 1:
+            prog.add_linear_constraint(Hxu, gxu, variables=input_vars(i))
+        prog.add_quadratic_cost_epigraph(np.eye(nu), input_vars(i), epigraph)
+        prog.add_quadratic_cost_epigraph(np.eye(nx), state_vars(i + 1), epigraph + 1)
+        epigraph += 2
+    config = SolverConfig(
+        prepare_dual_variables=True, inv_sqrt_mu_max=100.0,
+        final_centering_tolerance=1.0, infeasibility_threshold=2e6,
+        final_centering_steps=5, kkt_solver=KKT_SOLVER_LDLT,
+        iterative_refinement_iterations=2, max_iterations=60)
+    return prog, -np.ones(T * (nu + nx + 2)), config
+
+
+def sparse_conex(device):
+    """tests/test_interface.py:53's sparse instance through Conex."""
+    import numpy as np
+
+    from conex_tpu_torch.interface import Conex
+
+    rng = np.random.default_rng(1)
+    n = 4
+
+    def randsym():
+        M = rng.normal(size=(n, n))
+        return 0.5 * (M + M.T)
+
+    prog = Conex(3, device=device)
+    prog.AddSparseLinearMatrixInequality(np.stack([randsym(), randsym()]), np.eye(n),
+                                         np.arange(0, 2))
+    prog.AddSparseLinearMatrixInequality(np.stack([randsym(), randsym()]), np.eye(n),
+                                         np.arange(1, 3))
+    return prog.Maximize(np.ones(3))
+
+
+def phase_sparse_known_answers(device):
+    """4g, first half: the JAX package's sparse tests on the card against
+    the CPU, the f64 LMI chain on both structures, and the compressed
+    factor's determinism."""
+    import numpy as np
+    import torch
+
+    from unittest import mock
+
+    from conex_tpu_torch import native
+    from conex_tpu_torch.algebra import sym
+    from conex_tpu_torch.solver import kkt
+    from conex_tpu_torch.solver.loop import assemble
+    from conex_tpu_torch.supernodal import compressed
+
+    t0 = time.perf_counter()
+    route = ("native: g++ built native/clique_ordering.cc into "
+             f"{native.library_path().name}" if native.available()
+             else "Python: no g++, so the Python version of the same algorithm")
+    log(f"[4g sparse] clique ordering {route} ({time.perf_counter() - t0:.2f} s)")
+    for seed, n_blocks, eq in ((6, 32, False), (7, 28, True)):
+        label = f"chain LP, {n_blocks} blocks{', 2 equality rows (LDLT)' if eq else ''}"
+        sparse, dense, b = chain_lp(seed, n_blocks, eq, device)
+        structure = type(sparse._kkt_structure()).__name__
+        route = "native" if native.available() else "Python"
+        rs, rd = sparse.solve(b), dense.solve(b)
+        cpu, _, _ = chain_lp(seed, n_blocks, eq, "cpu")
+        rc = cpu.solve(b)
+        d_dense = float(np.abs(rs.y - rd.y).max())
+        d_cpu = float(np.abs(rs.y - rc.y).max() / np.abs(rc.y).max())
+        log(f"[4g sparse] {label}: {structure} ({route} ordering), sparse / dense / CPU "
+            f"solved {rs.solved} / {rd.solved} / {rc.solved} in {rs.num_iterations} / "
+            f"{rd.num_iterations} / {rc.num_iterations} iterations; max |y sparse - y "
+            f"dense| {d_dense:.3e} (limit {SPARSE_DENSE_LIMIT}), y card vs CPU "
+            f"{d_cpu:.3e} of its largest entry (limit {SPARSE_CPU_LIMIT})")
+        if structure != "CompressedSupernodalStructure":
+            fail(f"4g: the {label} is not on the compressed structure")
+        if not (rs.solved and rd.solved and rc.solved
+                and rs.num_iterations == rc.num_iterations
+                and d_dense <= SPARSE_DENSE_LIMIT and d_cpu <= SPARSE_CPU_LIMIT):
+            fail(f"4g: the {label} disagrees")
+
+    sol, cpu = sparse_conex(device), sparse_conex("cpu")
+    d = float(np.abs(sol.y - cpu.y).max())
+    log(f"[4g sparse] Conex sparse instance: status {sol.status} (CPU {cpu.status}), "
+        f"max |y card - y CPU| {d:.3e} (limit 1e-6)")
+    if not (sol.status and cpu.status and d <= 1e-6):
+        fail("4g: the sparse Conex instance")
+
+    prog, b, config = mpc_program(device)
+    res = prog.solve(b, config)
+    cres = mpc_program("cpu")[0].solve(b, config)
+    log(f"[4g sparse] MPC failure case ({type(prog._kkt_structure()).__name__}, LDLT): "
+        f"y finite {bool(np.isfinite(res.y).all())}, solved {res.solved} (CPU "
+        f"{cres.solved}) in {res.num_iterations} iterations (CPU {cres.num_iterations})")
+    if not (np.isfinite(res.y).all() and res.solved == cres.solved):
+        fail("4g: the MPC failure case is not finite or disagrees with the CPU")
+
+    N, nc = SPARSE_SMALL
+    A, b, n_vars = sparse_chain(N, nc, seed=1, dtype="float64")
+    config = sparse_config()
+    warm = sym.extreme_eigenvalues_warm
+
+    def seeds_rounded_once(*args, **kwargs):
+        # One more float32 rounding of the sweep's eigenvector seeds.
+        lo, hi, seeds, lam = warm(*args, **kwargs)
+        return lo, hi, tuple(x * (1 + 2.0 ** -23) for x in seeds), lam
+
+    def diffs(x, y):
+        return (float(np.max(np.abs(x.stats_inv_sqrt_mu - y.stats_inv_sqrt_mu)
+                             / np.abs(y.stats_inv_sqrt_mu))),
+                float(np.abs(x.y - y.y).max() / np.abs(y.y).max()))
+
+    for structure in ("unrolled", "compressed"):
+        with clique_threshold(structure):
+            g, c, c1 = (sparse_chain_program(A, n_vars, dev, torch.float64).solve(bb, config)
+                        for dev, bb in ((device, b), ("cpu", b),
+                                        ("cpu", np.nextafter(b, np.inf))))
+            with mock.patch.object(sym, "extreme_eigenvalues_warm", seeds_rounded_once):
+                c2 = sparse_chain_program(A, n_vars, "cpu", torch.float64).solve(b, config)
+        dk, dy = diffs(g, c)
+        bk, by = diffs(c1, c)
+        sk, sy = diffs(c2, c)
+        log(f"[4g sparse] f64 LMI chain (N={N}, nc={nc}) on the {structure} structure: "
+            f"card vs CPU stats_k {dk:.3e} (limit {SPARSE_K_LIMIT}), y {dy:.3e} (limit "
+            f"{SPARSE_Y_LIMIT}); the CPU alone under one rounding of b: stats_k "
+            f"{bk:.3e}, y {by:.3e}; of the f32 warm seeds: stats_k {sk:.3e}, y {sy:.3e}")
+        if not (g.num_iterations == c.num_iterations == SPARSE_ITERATIONS
+                and not g._raw.fail and dk <= SPARSE_K_LIMIT and dy <= SPARSE_Y_LIMIT):
+            fail(f"4g: the f64 LMI chain on the {structure} structure disagrees")
+
+    N, nc, _ = SPARSE_RUNS[0]
+    A, _, n_vars = sparse_chain(N, nc)
+    with clique_threshold("compressed"):
+        prog = sparse_chain_program(A, n_vars, device, torch.float32)
+        structure = prog._kkt_structure()
+    ws = tuple(blk.identity_state(torch.float32) for blk in prog._blocks)
+    buf = assemble(tuple(prog._blocks), (), ws, n_vars, n_vars, torch.float32,
+                   structure)[0]
+    same = True
+    for mode in (kkt.KKT_SOLVER_LLT, kkt.KKT_SOLVER_LDLT):
+        fn = compressed.factor_llt if mode == kkt.KKT_SOLVER_LLT else compressed.factor_ldlt
+        one, two = fn(buf, structure), fn(buf, structure)
+        same &= all(torch.equal(x, y) for x, y in zip(one[0] + (one[1],),
+                                                         two[0] + (two[1],)))
+    log(f"[4g sparse] two compressed factors (LLT and LDLT) of one buffer (N={N}, "
+        f"{structure.buf_size} entries) give the same bits: {same}")
+    if not same:
+        fail("4g: the compressed factor is not deterministic")
+
+
+def phase_sparse(device):
+    """4g: the supernodal KKT path on the card.  Returns K1's launches in
+    the bench_sparse workload's solves."""
+    import torch
+
+    from conex_tpu_torch.cones import psd_schur
+    from conex_tpu_torch.parallel import fused_socp
+    from conex_tpu_torch.solver import kkt
+    from conex_tpu_torch.solver.loop import assemble
+    from conex_tpu_torch import native
+
+    start = time.perf_counter()
+    phase_sparse_known_answers(device)
+    log(f"[4g sparse] known answers {time.perf_counter() - start:.1f} s")
+    config = sparse_config()
+    short = sparse_config(SPARSE_PROFILE_ITERATIONS)
+    k1_total = 0
+    for N, nc, structure in SPARSE_RUNS:
+        t0 = time.perf_counter()
+        A, b, n_vars = sparse_chain(N, nc)
+        with clique_threshold(structure):
+            prog = sparse_chain_program(A, n_vars, device, torch.float32)
+            kkt_structure = prog._kkt_structure()
+            route = "native" if native.available() else "Python"
+            label = (f"N={N}, nc={nc}, {structure} ({len(kkt_structure.blocks)} "
+                     f"cliques, n={n_vars}, {route} ordering)")
+            if (type(kkt_structure).__name__ == "CompressedSupernodalStructure") != (
+                    structure == "compressed"):
+                fail(f"4g: {label} picked {type(kkt_structure).__name__}")
+            build_s = time.perf_counter() - t0
+            wall_short = best_wall(lambda: prog.solve(b, short), reps=1)
+            psd_schur.schur_kernel.launches = 0
+            fused_socp.solve_socp_kernel.launches = 0
+            t0 = time.perf_counter()
+            res = prog.solve(b, config)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            k1 = psd_schur.schur_kernel.launches
+            k1_total += k1
+            if (res.num_iterations != SPARSE_ITERATIONS or bool(res._raw.fail)
+                    or fused_socp.solve_socp_kernel.launches):
+                fail(f"4g: {label}: {res.num_iterations} iterations, fail "
+                     f"{bool(res._raw.fail)}, K2 launches "
+                     f"{fused_socp.solve_socp_kernel.launches}")
+            if k1 != N * SPARSE_ITERATIONS:
+                fail(f"4g: {label}: K1 launched {k1} times, not once per clique per "
+                     f"iteration ({N * SPARSE_ITERATIONS})")
+            device_ms, launches, top = device_profile(lambda: prog.solve(b, short))
+            ws = tuple(blk.identity_state(torch.float32) for blk in prog._blocks)
+            G = assemble(tuple(prog._blocks), (), ws, n_vars, n_vars, torch.float32,
+                         kkt_structure)[0]
+            factor_ms, factor_launches, _ = device_profile(
+                lambda: kkt.factor(G, kkt.KKT_SOLVER_LLT, kkt_structure))
+        log(f"[4g sparse] {label}: built in {build_s:.2f} s; 30 iterations, fail False; "
+            f"wall {wall:.3f} s, {SPARSE_ITERATIONS / wall:.2f} Newton it/s, "
+            f"{wall / SPARSE_ITERATIONS:.4f} s per iteration; K1 launches {k1} "
+            f"({k1 // SPARSE_ITERATIONS} per iteration)")
+        log(f"[4g sparse] {label}: one profiled solve of {SPARSE_PROFILE_ITERATIONS} "
+            f"iterations: {launches} launches ({launches / SPARSE_PROFILE_ITERATIONS:.1f} "
+            f"per iteration), device-kernel time {device_ms:.3f} ms, busy "
+            f"{100 * device_ms / (wall_short * 1e3):.1f}% of its unprofiled wall "
+            f"{wall_short:.3f} s; one KKT factor: {factor_launches} launches, "
+            f"{factor_ms:.3f} ms of device time")
+        for ms, count, key in top[:4]:
+            log(f"[4g sparse]   {ms:9.3f} ms x{count:<6} {key[:90]}")
+
+    # K1 at the chain's shape (S = 1, Bc = 1, m = 6, n = 8), f32.
+    A, W, C = (x.float() for x in schur_inputs(1, 1, 6, 8, seed=2, device=device))
+    got = psd_schur.schur_kernel(A, W, C)
+    plain = psd_schur.schur_plain(A, W, C)
+    oracle = psd_schur.schur_plain(*(x.double() for x in (A, W, C)))
+    err = rel_err(got, oracle)
+    ms = {"plain": [], "kernel": []}
+    fns = {"plain": lambda: psd_schur.schur_plain(A, W, C),
+           "kernel": lambda: psd_schur.schur_kernel(A, W, C)}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        ms[name].append(time_ms(fns[name], 100))
+    log(f"[4g sparse] K1 at the chain's shape (1, 1, 6, 8), f32: rel err vs the f64 "
+        f"oracle {err:.3e} (limit 1e-4), max |kernel - plain| "
+        f"{max(float((g - p).abs().max()) for g, p in zip(got, plain)):.3e}; ms per "
+        f"call: kernel {ms['kernel']}, plain {ms['plain']} (CUDA events, 100 calls "
+        f"each); bound {schur_bound(1, 1, 6, 8, tensor_cores=True)}")
+    if not err <= 1e-4:
+        fail("4g: K1 disagrees with the f64 oracle at the chain's shape")
+    log(f"[4g sparse] phase {time.perf_counter() - start:.1f} s")
+    return k1_total
+
+
 def phase_probe_entry_points():
     """The two probe harnesses on the card; returns each variant's kernel
     launches in this phase."""
@@ -2321,6 +2740,7 @@ def main():
     schur["path_launches"] = {"4": schur["launches"], "4d": phase_eq_sdp(device)}
     phase_qp(device)
     phase_herm(device)
+    schur["path_launches"]["4g"] = phase_sparse(device)
     phase_known_answer(device)
     phase_soc_known_answer(device)
     phase_lp_known_answer(device)

@@ -9,8 +9,11 @@ solve as one CUDA kernel, ``csrc/fused_socp.cu``), the LP cone with
 the line-search mu update, and the indefinite-KKT half: equality
 constraints, quadratic costs and Q-weighted quadratic cones, with the
 clamped LDLT and QR KKT modes, the Hermitian PSD cones over the complex
-numbers, quaternions and octonions, and the two front ends
-(``interface.Conex`` and ``sedumi.solve_sedumi``).  Each kernel runs on the
+numbers, quaternions and octonions, the supernodal KKT path for programs
+whose blocks cover variable subsets (``supernodal/``: the clique-tree
+ordering, with its C++ version in ``native/``, and the unrolled, padded
+and block-compressed factorizations), and the two front ends
+(``interface.Conex`` and ``sedumi.solve_sedumi``, exported lazily).  Each kernel runs on the
 card and its plain PyTorch twin on the CPU.  The package imports torch and
 numpy, never jax.
 """
@@ -34,8 +37,24 @@ from .cones.soc import SOCCone
 from .parallel.sharded import solve_scenarios
 from .program import Program, Result
 
+
+def __getattr__(name):
+    # Lazy exports, as in the JAX package: the front ends import more
+    # modules than a solve needs.
+    if name == "Conex":
+        from .interface import Conex
+
+        return Conex
+    if name == "solve_sedumi":
+        from .sedumi import solve_sedumi
+
+        return solve_sedumi
+    raise AttributeError(name)
+
+
 __all__ = [
     "COLDSTART",
+    "Conex",
     "DEFAULT_CONFIG",
     "KKT_SOLVER_LDLT",
     "KKT_SOLVER_LLT",
@@ -52,4 +71,7 @@ __all__ = [
     "SOCCone",
     "SolverConfig",
     "solve_scenarios",
+    "solve_sedumi",
 ]
+
+__version__ = "0.1.0"

@@ -1,13 +1,16 @@
 """Host-side Program: a conic program with equality constraints and
 quadratic costs.
 
-Twin of ``conex_tpu/program.py`` for dense programs: collect linear,
-Lorentz-cone, Q-weighted quadratic-cone, dense LMI and Hermitian LMI
-constraints, quadratic costs and their epigraphs, and affine equalities;
-update cone data in place, solve coldstart or warmstart, read back the dual
-variables (cones and equalities), and save or load the warmstart state.
-Sparse variable subsets (the supernodal KKT path) come later (ROADMAP.md
-queue 1).  A Program runs on one device, given as
+Twin of ``conex_tpu/program.py``: collect linear, Lorentz-cone,
+Q-weighted quadratic-cone, dense LMI and Hermitian LMI constraints,
+quadratic costs and their epigraphs, and affine equalities, each over the
+first v variables or any subset (``variables=``); update cone data in
+place, solve coldstart or warmstart, read back the dual variables (cones
+and equalities), and save or load the warmstart state.  A program with a
+subset other than the first v solves on the supernodal KKT path: the
+clique tree of its blocks' variable sets, factored per clique (the
+unrolled structure) or, above ``SCAN_CLIQUE_THRESHOLD`` cliques, on the
+block-compressed buffer.  A Program runs on one device, given as
 ``device=``: the card (``"cuda"``) unless the caller asks for ``"cpu"``.
 """
 
@@ -19,7 +22,7 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
-from .config import COLDSTART, KKT_SOLVER_LDLT, KKT_SOLVER_LLT, WARMSTART, SolverConfig, not_ported
+from .config import COLDSTART, KKT_SOLVER_LDLT, KKT_SOLVER_LLT, WARMSTART, SolverConfig
 from .cones.equality import EqualityBlock
 from .cones.hermitian import HermitianCone, HermState
 from .cones.lp import LinearCone
@@ -29,6 +32,14 @@ from .cones.quadratic import QuadraticCone, epigraph_cone_data
 from .cones.soc import SOCCone
 from .convert import to_numpy
 from .solver.loop import SolveResult, _solve_impl, _strip_scenario, assemble
+from .supernodal.compressed import CompressedSupernodalStructure
+from .supernodal.solver import SupernodalStructure
+
+# Above this many cliques the solve uses the block-compressed supernodal
+# path (supernodal/compressed.py: the flat padded per-clique factor buffer)
+# instead of one step per clique at its own size.  Read at each solve, so
+# that a caller may set it on the module.
+SCAN_CLIQUE_THRESHOLD = 24
 
 
 @dataclasses.dataclass
@@ -87,30 +98,31 @@ class Program:
                             device=self.device)
 
     def _check_variables(self, variables, v):
-        """Only the first v variables are supported: a sparse subset needs
-        the supernodal KKT path, not ported yet."""
+        """The block's ``vars_``: None for the first v variables (the dense
+        fast path), else the tuple of its variables (JAX
+        ``_as_tuple_or_none``)."""
         if v > self.num_vars:
             raise ValueError("constraint has more variables than the program")
-        if variables is not None:
-            t = tuple(int(x) for x in variables)
-            if len(set(t)) != len(t):
-                raise ValueError("duplicate variables in constraint")
-            if t != tuple(range(v)):
-                raise not_ported("sparse variable subsets", "13")
+        if variables is None:
+            return None
+        t = tuple(int(x) for x in variables)
+        if len(set(t)) != len(t):
+            raise ValueError("duplicate variables in constraint")
+        return None if t == tuple(range(v)) else t
 
     def add_linear_constraint(self, A, c, variables=None):
         """c - A y >= 0 elementwise (reference LinearConstraint).
 
-        A: (n, v), c: (n,).  ``variables`` other than the first v (a sparse
-        subset) needs the supernodal KKT path, not ported yet.
+        A: (n, v), c: (n,); ``variables``: the v variables it covers
+        (default the first v).
         """
         A = np.atleast_2d(np.asarray(A, dtype=np.float64))
         c = np.asarray(c, dtype=np.float64).reshape(-1)
         if A.shape[0] != c.shape[0]:
             raise ValueError("A rows must match c length")
-        self._check_variables(variables, A.shape[1])
+        vars_ = self._check_variables(variables, A.shape[1])
         self._blocks.append(
-            LinearCone(A=self._tensor(A)[None], c=self._tensor(c)[None])
+            LinearCone(A=self._tensor(A)[None], c=self._tensor(c)[None], vars_=vars_)
         )
         return len(self._blocks) - 1
 
@@ -128,9 +140,9 @@ class Program:
             c = c[None]
         if A.ndim != 3 or A.shape[:2] != c.shape:
             raise ValueError("A and c batch/cone dimensions must match")
-        self._check_variables(variables, A.shape[2])
+        vars_ = self._check_variables(variables, A.shape[2])
         self._blocks.append(
-            SOCCone(A=self._tensor(A)[None], c=self._tensor(c)[None])
+            SOCCone(A=self._tensor(A)[None], c=self._tensor(c)[None], vars_=vars_)
         )
         return len(self._blocks) - 1
 
@@ -139,8 +151,7 @@ class Program:
 
         A: (v, n, n) stack of symmetric matrices, C: (n, n) for a single
         LMI; or batched A: (B, v, n, n), C: (B, n, n) for B same-shape LMIs
-        over the same variables.  ``variables`` other than the first v
-        (a sparse subset) needs the supernodal KKT path, not ported yet.
+        over the same variables.
         """
         A = np.asarray(A, dtype=np.float64)
         C = np.asarray(C, dtype=np.float64)
@@ -153,9 +164,9 @@ class Program:
             C, np.swapaxes(C, 1, 2)
         ):
             raise ValueError("LMI matrices must be symmetric")
-        self._check_variables(variables, A.shape[1])
+        vars_ = self._check_variables(variables, A.shape[1])
         self._blocks.append(
-            DenseLMICone(A=self._tensor(A)[None], C=self._tensor(C)[None])
+            DenseLMICone(A=self._tensor(A)[None], C=self._tensor(C)[None], vars_=vars_)
         )
         return len(self._blocks) - 1
 
@@ -195,9 +206,9 @@ class Program:
                 M[:, 1:], -np.swapaxes(M[:, 1:], -1, -2)
             ):
                 raise ValueError("components >= 1 must be skew-symmetric")
-        self._check_variables(variables, A.shape[1])
+        vars_ = self._check_variables(variables, A.shape[1])
         self._blocks.append(
-            HermitianCone(A=self._tensor(A)[None], C=self._tensor(C)[None])
+            HermitianCone(A=self._tensor(A)[None], C=self._tensor(C)[None], vars_=vars_)
         )
         return len(self._blocks) - 1
 
@@ -221,10 +232,10 @@ class Program:
             Q = np.asarray(Q, dtype=np.float64)
             if Q.shape != (A.shape[0], A.shape[1] - 1, A.shape[1] - 1):
                 raise ValueError("Q must be (B, n, n) matching A")
-        self._check_variables(variables, A.shape[2])
+        vars_ = self._check_variables(variables, A.shape[2])
         self._blocks.append(QuadraticCone.build(
             self._tensor(A)[None], self._tensor(c)[None],
-            None if Q is None else self._tensor(Q)[None],
+            None if Q is None else self._tensor(Q)[None], vars_=vars_,
         ))
         return len(self._blocks) - 1
 
@@ -234,9 +245,8 @@ class Program:
         objective to minimize the cost.
 
         reference: AddQuadraticCostEpigraph
-        (quadratic_cone_constraint.h:91-118).  Only x = y[0:nv], t = y[nv]
-        is dense; any other placement is a sparse subset, which needs the
-        supernodal KKT path (not ported yet).
+        (quadratic_cone_constraint.h:91-118).  x = y[0:nv], t = y[nv] is
+        the dense fast path; any other placement is a sparse subset.
         """
         Qi = np.atleast_2d(np.asarray(Qi, dtype=np.float64))
         variables = list(variables)
@@ -258,9 +268,9 @@ class Program:
         Q = np.atleast_2d(np.asarray(Q, dtype=np.float64))
         if Q.shape[0] != Q.shape[1] or not np.allclose(Q, Q.T):
             raise ValueError("quadratic cost must be square symmetric")
-        self._check_variables(variables, Q.shape[0])
+        vars_ = self._check_variables(variables, Q.shape[0])
         self._has_quadratic_cost = True
-        self._blocks.append(QuadraticCost(Q=self._tensor(Q)[None]))
+        self._blocks.append(QuadraticCost(Q=self._tensor(Q)[None], vars_=vars_))
         return len(self._blocks) - 1
 
     def add_equality_constraint(self, A, b, variables=None):
@@ -268,9 +278,9 @@ class Program:
         get_equality_dual takes."""
         A = np.atleast_2d(np.asarray(A, dtype=np.float64))
         b = np.asarray(b, dtype=np.float64).reshape(-1)
-        self._check_variables(variables, A.shape[1])
+        vars_ = self._check_variables(variables, A.shape[1])
         self._eq_blocks.append(EqualityBlock(
-            A=self._tensor(A)[None], b=self._tensor(b)[None],
+            A=self._tensor(A)[None], b=self._tensor(b)[None], vars_=vars_,
             dual_offset=self._dual_size,
         ))
         self._dual_size += A.shape[0]
@@ -353,6 +363,44 @@ class Program:
             raise ValueError("constraint does not support affine updates")
         self._blocks[i] = blk
 
+    def _kkt_structure(self):
+        """Supernodal clique-tree structure when the program is sparse.
+
+        Cliques are per-block variable sets, with equality dual indices
+        appended to their constraint's clique (reference
+        constraint_manager.h:71-86).  Dense programs (every block on the
+        first v variables) use the dense factorization.  reference:
+        kkt_solver.cc 104-116 (GetData on cliques + dual vars); valid_leaf
+        weighting forces dual-bearing cliques inward
+        (clique_ordering.cc:99-107).
+        """
+        if not any(blk.vars_ is not None for blk in self._blocks) and not any(
+            eq.vars_ is not None for eq in self._eq_blocks
+        ):
+            return None
+        cliques = []
+        valid_leaf = []
+        for blk in self._blocks:
+            cliques.append(list(blk.vars_) if blk.vars_ is not None
+                           else list(range(blk.num_vars)))
+            valid_leaf.append(1)
+        for eq in self._eq_blocks:
+            c = list(eq.vars_) if eq.vars_ is not None else list(range(eq.num_vars))
+            cliques.append(c + [self.num_vars + eq.dual_offset + i
+                                for i in range(eq.p)])
+            valid_leaf.append(0)
+        struct = SupernodalStructure.from_cliques(
+            cliques, self.num_vars + self._dual_size, valid_leaf=valid_leaf
+        )
+        # Many-clique programs: the block-compressed buffer, O(sum of block
+        # sizes) memory instead of O(N^2), assembled by scattering each
+        # cone contribution straight into the per-clique blocks.  The
+        # unrolled structure stays for few-clique programs, where
+        # per-clique shapes beat the padding.
+        if len(struct.blocks) > SCAN_CLIQUE_THRESHOLD:
+            return CompressedSupernodalStructure.from_structure(struct)
+        return struct
+
     def _default_config(self, config: Optional[SolverConfig]) -> SolverConfig:
         if config is None:
             config = SolverConfig()
@@ -397,7 +445,7 @@ class Program:
 
         res = _solve_impl(
             tuple(self._blocks), tuple(self._eq_blocks), b[None], init_ws,
-            init_scalars, config,
+            init_scalars, config, kkt_structure=self._kkt_structure(),
         )
 
         self._ws = res.ws

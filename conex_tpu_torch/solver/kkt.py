@@ -3,8 +3,11 @@
 Twin of the dense paths of ``conex_tpu/solver/kkt.py``, batched over the
 scenario axis: K is (S, N, N), right-hand sides (S, N), and the fail flag
 (S,).  Each scenario makes its own clamp decisions and sets its own fail
-flag.  The supernodal structures raise NotImplementedError naming the
-ROADMAP item that ports them.
+flag.  With a supernodal structure (``supernodal/``) the LLT and LDLT
+factor along the clique tree instead: the unrolled and padded structures
+take the dense K, the compressed one its flat (S, buf_size) buffer.  The
+distributed structures of the JAX package are not ported yet and raise
+NotImplementedError naming their ROADMAP item.
 
 Mode semantics (reference kkt_solver.cc:172-199):
   LLT  - used when there are no equality-constraint duals.
@@ -137,14 +140,39 @@ def _ldlt_clamped(K, panel: int = LDLT_PANEL):
     return M, ~torch.isfinite(M).all(dim=(-2, -1))
 
 
+def _supernodal(structure):
+    """The module that factors and solves on ``structure``."""
+    from ..supernodal import compressed, scan
+    from ..supernodal import solver as unrolled
+
+    for module, kind in ((compressed, compressed.CompressedSupernodalStructure),
+                         (scan, scan.ScanSupernodalStructure),
+                         (unrolled, unrolled.SupernodalStructure)):
+        if isinstance(structure, kind):
+            return module
+    raise not_ported(f"the supernodal structure {type(structure).__name__} "
+                     "(the distributed structures)", "14")
+
+
+def _sparse(structure, mode: int) -> bool:
+    # QR always runs on the dense matrix (reference kkt_solver.cc:174-177).
+    return structure is not None and mode in (KKT_SOLVER_LLT, KKT_SOLVER_LDLT)
+
+
 def factor(K, mode: int, structure=None, island_dtype=None) -> KKTFactor:
-    """Factor the (S, N, N) KKT matrices.  ``island_dtype``: optional
-    precision island (e.g. torch.float64) — K is cast up before
-    factorization and ``solve`` casts solutions back to the rhs dtype."""
-    if structure is not None:
-        raise not_ported("the supernodal KKT path", "13")
-    if island_dtype is not None:
+    """Factor the (S, N, N) KKT matrices, or with a
+    CompressedSupernodalStructure the (S, buf_size) compressed buffers.
+    ``structure``: optional supernodal structure to factor along (QR
+    ignores it).  ``island_dtype``: optional precision island (e.g.
+    torch.float64) for the dense path — K is cast up before factorization
+    and ``solve`` casts solutions back to the rhs dtype."""
+    if island_dtype is not None and structure is None:
         K = K.to(island_dtype)
+    if _sparse(structure, mode):
+        sn = _supernodal(structure)
+        fn = sn.factor_llt if mode == KKT_SOLVER_LLT else sn.factor_ldlt
+        fac, fail = fn(K, structure)
+        return KKTFactor(matrix=K, factor=fac, fail=fail)
     if mode == KKT_SOLVER_LLT:
         L, fail = _cholesky(K)
     elif mode == KKT_SOLVER_LDLT:
@@ -185,19 +213,38 @@ _SOLVES = {KKT_SOLVER_LLT: _solve_llt, KKT_SOLVER_LDLT: _solve_ldlt,
            KKT_SOLVER_QR: _solve_qr}
 
 
-def solve(f: KKTFactor, b, mode: int, refinement_steps: int = 0):
-    """Solve K x = b per scenario, with optional iterative refinement.
+def _residual_product(matrix, structure, x):
+    """K x for refinement: from the compressed buffer, or the dense K."""
+    from ..supernodal import compressed
+
+    if isinstance(structure, compressed.CompressedSupernodalStructure):
+        return compressed.matvec(matrix, structure, x)
+    return (matrix @ x[..., None])[..., 0]
+
+
+def solve(f: KKTFactor, b, mode: int, refinement_steps: int = 0,
+          structure=None):
+    """Solve K x = b per scenario, with optional iterative refinement;
+    ``structure`` as given to ``factor``.
 
     reference: SolveInPlace + refinement loop, kkt_solver.cc:220-263.
     """
     if mode not in _SOLVES:
         raise ValueError(f"unknown kkt solver mode {mode}")
-    base_solve = _SOLVES[mode]
     out_dtype = b.dtype
-    if f.matrix.dtype != b.dtype:
-        b = b.to(f.matrix.dtype)
+    if _sparse(structure, mode):
+        sn = _supernodal(structure)
+        fn = sn.solve_llt if mode == KKT_SOLVER_LLT else sn.solve_ldlt
+
+        def base_solve(fac, rhs):
+            return fn(fac, structure, rhs)
+    else:
+        base_solve = _SOLVES[mode]
+        if structure is None and f.matrix.dtype != b.dtype:
+            b = b.to(f.matrix.dtype)
+
     x = base_solve(f.factor, b)
     for _ in range(refinement_steps):
-        r = b - (f.matrix @ x[..., None])[..., 0]
+        r = b - _residual_product(f.matrix, structure, x)
         x = x + base_solve(f.factor, r)
     return x.to(out_dtype)

@@ -22,7 +22,10 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..cones.base import local_vars, per_scenario, tree_select
-from ..config import SCHUR_PRECISION_MODES, WARMSTART, SolverConfig
+from ..config import (KKT_SOLVER_LDLT, KKT_SOLVER_LLT, SCHUR_PRECISION_MODES,
+                      WARMSTART, SolverConfig)
+from ..supernodal.compressed import (CompressedSupernodalStructure, empty_buffer,
+                                     scatter_contribution)
 from . import kkt
 from .mu import SlackAgg, mu_from_divergence
 
@@ -97,7 +100,7 @@ def _scatter_vec(x, vars_, xi):
     x[:, slice(0, xi.shape[-1]) if vars_ is None else list(vars_)] += xi
 
 
-def assemble(blocks, eq_blocks, ws, n_kkt: int, m: int, dtype):
+def assemble(blocks, eq_blocks, ws, n_kkt: int, m: int, dtype, structure=None):
     """Assemble the (S, n_kkt, n_kkt) KKT matrices and residuals from the
     block contributions; n_kkt = m + the equality rows.
 
@@ -106,16 +109,31 @@ def assemble(blocks, eq_blocks, ws, n_kkt: int, m: int, dtype):
     equality_constraint.cc:13-28).  A cone block covers the first ``v``
     variables or scatters onto its ``vars_``; an equality block adds
     [0 A^T; A 0] on its dual rows and b to the tail of AQc.
+
+    With a CompressedSupernodalStructure the matrices are the (S, buf_size)
+    block-compressed buffers (supernodal/compressed.py): each contribution
+    scatters straight into the per-clique blocks through a host-made index
+    map — the compressed counterpart of SupernodalAssembler
+    (supernodal_assembler.cc:72-141) — and no dense (N, N) matrix is built.
     """
     outs = [blk.schur(w) for blk, w in zip(blocks, ws)]
     S, device = outs[0].G.shape[0], outs[0].G.device
-    G = torch.zeros((S, n_kkt, n_kkt), dtype=dtype, device=device)
+    compressed = (structure if isinstance(structure, CompressedSupernodalStructure)
+                  else None)
+    if compressed is not None:
+        G = empty_buffer(compressed, dtype, S, device)
+    else:
+        G = torch.zeros((S, n_kkt, n_kkt), dtype=dtype, device=device)
     AW = torch.zeros((S, n_kkt), dtype=dtype, device=device)
     AQc = torch.zeros((S, n_kkt), dtype=dtype, device=device)
     w_dot_c = torch.zeros((S,), dtype=dtype, device=device)
     c_dot_Qc = torch.zeros((S,), dtype=dtype, device=device)
     for blk, out in zip(blocks, outs):
-        _scatter_mat(G, blk.vars_, out.G)
+        if compressed is not None:
+            v = blk.vars_ if blk.vars_ is not None else tuple(range(out.G.shape[-1]))
+            scatter_contribution(G, compressed, v, v, out.G)
+        else:
+            _scatter_mat(G, blk.vars_, out.G)
         _scatter_vec(AW, blk.vars_, out.AW)
         _scatter_vec(AQc, blk.vars_, out.AQc)
         w_dot_c = w_dot_c + out.w_dot_c
@@ -123,11 +141,21 @@ def assemble(blocks, eq_blocks, ws, n_kkt: int, m: int, dtype):
     for eq in eq_blocks:
         off = m + eq.dual_offset
         rows = slice(off, off + eq.p)
-        cols = (slice(0, eq.num_vars) if eq.vars_ is None
-                else torch.tensor(eq.vars_, device=device))
-        G[:, rows, cols] += eq.A
-        G[:, cols, rows] += eq.A.transpose(1, 2)
+        if compressed is not None:
+            dual_rows = tuple(range(off, off + eq.p))
+            cols = eq.vars_ if eq.vars_ is not None else tuple(range(eq.num_vars))
+            scatter_contribution(G, compressed, dual_rows, cols, eq.A)
+            scatter_contribution(G, compressed, cols, dual_rows, eq.A.transpose(1, 2))
+        else:
+            cols = (slice(0, eq.num_vars) if eq.vars_ is None
+                    else torch.tensor(eq.vars_, device=device))
+            G[:, rows, cols] += eq.A
+            G[:, cols, rows] += eq.A.transpose(1, 2)
         AQc[:, rows] += eq.b
+    if compressed is not None:
+        # The dump slot collects padding and mirrored-orientation writes;
+        # nothing downstream may read what it accumulated.
+        G[:, compressed.dump] = 0.0
     return G, AW, AQc, w_dot_c, c_dot_Qc
 
 
@@ -186,15 +214,16 @@ def _identity_all(blocks, dtype):
     return tuple(blk.identity_state(dtype) for blk in blocks)
 
 
-def _mu_line_search(blocks, ws, fac, config, AW, AQc_s, b_s_vec, c_scaling):
+def _mu_line_search(blocks, ws, fac, config, AW, AQc_s, b_s_vec, c_scaling,
+                    structure=None):
     """reference: ComputeMuFromLineSearch, cone_program.cc:118-160.  Per
     scenario: the largest admissible k of the segment from y0 to y1, or
     -1 where a block fails (a block without line search always does,
     reference constraint.h:24-28) or the intervals do not meet."""
     refine = config.iterative_refinement_iterations
     mode = config.kkt_solver
-    y0 = kkt.solve(fac, -2.0 * AW, mode, refine)
-    y1 = kkt.solve(fac, AQc_s + b_s_vec - 2.0 * AW, mode, refine)
+    y0 = kkt.solve(fac, -2.0 * AW, mode, refine, structure)
+    y1 = kkt.solve(fac, AQc_s + b_s_vec - 2.0 * AW, mode, refine, structure)
     lower = torch.full_like(c_scaling, -float("inf"))
     upper = torch.full_like(c_scaling, float("inf"))
     fail = torch.zeros(c_scaling.shape, dtype=torch.bool, device=c_scaling.device)
@@ -214,11 +243,12 @@ def _mu_line_search(blocks, ws, fac, config, AW, AQc_s, b_s_vec, c_scaling):
     return torch.where(fail, torch.full_like(upper, -1.0), upper)
 
 
-def _mu_divergence(blocks, ws, fac, config, AQc_s, b_s_vec, c_scaling, rank_k):
+def _mu_divergence(blocks, ws, fac, config, AQc_s, b_s_vec, c_scaling, rank_k,
+                   structure=None):
     """reference: ComputeMuFromDivergence, cone_program.cc:173-214."""
     ydiv = kkt.solve(
         fac, AQc_s - b_s_vec, config.kkt_solver,
-        config.iterative_refinement_iterations,
+        config.iterative_refinement_iterations, structure,
     )
     p = _slack_stats_all(blocks, ws, ydiv, c_scaling)
     return mu_from_divergence(p, rank_k, config.divergence_upper_bound)
@@ -260,16 +290,19 @@ def _no_tf32():
 
 
 def _solve_impl(blocks, eq_blocks, b, init_ws, init_scalars,
-                config: SolverConfig):
+                config: SolverConfig, kkt_structure=None):
     """Solve S same-structure programs: b (S, m), block tensors and
-    init_ws fields (S, ...), init_scalars k / b_scaling / c_scaling (S,)."""
+    init_ws fields (S, ...), init_scalars k / b_scaling / c_scaling (S,).
+    ``kkt_structure``: an optional supernodal structure (supernodal/) that
+    every KKT assembly, factor and solve of the loop runs on."""
     _check_supported(config)
     with _no_tf32() if b.is_cuda else contextlib.nullcontext():
-        return _solve_loop(blocks, eq_blocks, b, init_ws, init_scalars, config)
+        return _solve_loop(blocks, eq_blocks, b, init_ws, init_scalars, config,
+                           kkt_structure)
 
 
 def _solve_loop(blocks, eq_blocks, b, init_ws, init_scalars,
-                config: SolverConfig):
+                config: SolverConfig, kkt_structure=None):
     dtype = b.dtype
     device = b.device
     S, m = b.shape
@@ -288,6 +321,9 @@ def _solve_loop(blocks, eq_blocks, b, init_ws, init_scalars,
     refine = config.iterative_refinement_iterations
     island = kkt.island_dtype(config.kkt_island_dtype)
     T = config.max_iterations
+    if mode not in (KKT_SOLVER_LLT, KKT_SOLVER_LDLT):
+        # QR needs the dense matrix (reference kkt_solver.cc:174-177).
+        kkt_structure = None
 
     k_min_clamp = (1.0 / (1e-15 + config.maximum_mu)) ** 0.5
 
@@ -318,7 +354,7 @@ def _solve_loop(blocks, eq_blocks, b, init_ws, init_scalars,
 
         # --- Assemble (cone_program.cc:338-341) ---
         G, AW, AQc, w_dot_c, c_dot_Qc = assemble(
-            blocks, eq_blocks, s.ws, n_kkt, m, dtype
+            blocks, eq_blocks, s.ws, n_kkt, m, dtype, kkt_structure
         )
 
         # --- First-iteration rescaling (cone_program.cc:343-357) ---
@@ -343,7 +379,7 @@ def _solve_loop(blocks, eq_blocks, b, init_ws, init_scalars,
             b_scaling, c_scaling, k_max = s.b_scaling, s.c_scaling, s.k_max
 
         # --- Factor (cone_program.cc:359-371) ---
-        fac = kkt.factor(G, mode, island_dtype=island)
+        fac = kkt.factor(G, mode, kkt_structure, island_dtype=island)
 
         # Both sides of the factor-fail branch are computed and merged with
         # per-scenario selects, as the JAX package does; values computed
@@ -356,12 +392,14 @@ def _solve_loop(blocks, eq_blocks, b, init_ws, init_scalars,
         # --- Mu update (cone_program.cc:374-403), branch-free ---
         if config.enable_line_search:
             temp = _mu_line_search(
-                blocks, s.ws, fac, config, AW, AQc_s, b_s_vec, c_scaling
+                blocks, s.ws, fac, config, AW, AQc_s, b_s_vec, c_scaling,
+                kkt_structure,
             )
             temp = torch.where(temp < 0, s.k, temp)
         else:
             temp = _mu_divergence(
-                blocks, s.ws, fac, config, AQc_s, b_s_vec, c_scaling, rank_k
+                blocks, s.ws, fac, config, AQc_s, b_s_vec, c_scaling, rank_k,
+                kkt_structure,
             )
         k_cand = torch.where(temp > 0, temp, s.k * 0.5)
 
@@ -394,7 +432,8 @@ def _solve_loop(blocks, eq_blocks, b, init_ws, init_scalars,
 
         # --- Newton solve (cone_program.cc:409-413) ---
         y = kkt.solve(
-            fac, k[:, None] * (b_s_vec + AQc_s) - 2.0 * AW, mode, refine
+            fac, k[:, None] * (b_s_vec + AQc_s) - 2.0 * AW, mode, refine,
+            kkt_structure,
         )
 
         # --- PrepareStep (cone_program.cc:416-426) ---
@@ -581,10 +620,11 @@ def _solve_loop(blocks, eq_blocks, b, init_ws, init_scalars,
     if config.prepare_dual_variables:
         # Dual recovery: one extra assemble/factor/solve + affine step
         # (cone_program.cc:500-516).  A failed run keeps the loop's W.
-        G, AW, AQc, _, _ = assemble(blocks, eq_blocks, ws_final, n_kkt, m, dtype)
-        fac = kkt.factor(G, mode, island_dtype=island)
+        G, AW, AQc, _, _ = assemble(blocks, eq_blocks, ws_final, n_kkt, m, dtype,
+                                    kkt_structure)
+        fac = kkt.factor(G, mode, kkt_structure, island_dtype=island)
         bres = s.k[:, None] * b_full * s.b_scaling[:, None] - AW
-        y2 = kkt.solve(fac, bres, mode, refine)
+        y2 = kkt.solve(fac, bres, mode, refine, kkt_structure)
         skip = s.fail | fac.fail
         ws_recovered = tuple(
             blk.affine_step(w, local_vars(y2, blk.vars_, blk.num_vars), 0.0)

@@ -1,4 +1,5 @@
-"""The port's SolverConfig is a field-for-field copy of the JAX package's."""
+"""The port's SolverConfig is a field-for-field copy of the JAX package's,
+and its package root exports the JAX package's names."""
 
 import dataclasses
 
@@ -44,3 +45,25 @@ def test_default_config_exported_and_equal_to_jax():
     for f in dataclasses.fields(jcfg.SolverConfig):
         assert (getattr(conex_tpu_torch.DEFAULT_CONFIG, f.name)
                 == getattr(conex_tpu.DEFAULT_CONFIG, f.name)), f.name
+
+
+def test_package_root_exports_what_the_jax_package_does():
+    """Every name of conex_tpu.__all__ resolves on the port's root, Conex
+    and solve_sedumi lazily as in JAX, and __version__ is JAX's; an
+    unknown name still raises AttributeError."""
+    import pytest
+
+    import conex_tpu
+    import conex_tpu_torch
+
+    for name in conex_tpu.__all__:
+        assert name in conex_tpu_torch.__all__, name
+        assert getattr(conex_tpu_torch, name) is not None, name
+    from conex_tpu_torch.interface import Conex
+    from conex_tpu_torch.sedumi import solve_sedumi
+
+    assert conex_tpu_torch.Conex is Conex
+    assert conex_tpu_torch.solve_sedumi is solve_sedumi
+    assert conex_tpu_torch.__version__ == conex_tpu.__version__ == "0.1.0"
+    with pytest.raises(AttributeError):
+        conex_tpu_torch.no_such_name

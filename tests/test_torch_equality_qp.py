@@ -472,15 +472,17 @@ def test_epigraph_qp_matches_quadratic_cost_and_jax():
 
 def test_epigraph_over_other_variables_is_a_sparse_subset():
     """x = y[0:nv], t = y[nv] collapses to the dense path; any other
-    placement is a sparse subset, which the JAX package sends to the
-    supernodal KKT path and the port does not have yet (item 13)."""
+    placement is a sparse subset, which both packages send to the
+    supernodal KKT path (solved in tests/test_torch_sparse_program.py)."""
     nv, Qi, _ = _epigraph_instance()
-    p = ct.Program(nv + 1, device="cpu")
+    jp, p = conex_tpu.Program(nv + 1), ct.Program(nv + 1, device="cpu")
     assert p.add_quadratic_cost_epigraph(Qi, range(nv), nv) == 0
     assert p._blocks[0].vars_ is None
     for variables, t in ((range(1, nv + 1), 0), ([1, 0, 2], nv)):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            p.add_quadratic_cost_epigraph(Qi, variables, t)
+        p.add_quadratic_cost_epigraph(Qi, variables, t)
+        jp.add_quadratic_cost_epigraph(Qi, variables, t)
+        assert p._blocks[-1].vars_ == jp._blocks[-1].vars_ == tuple(variables) + (t,)
+    assert p._kkt_structure() == tuple(jp._kkt_structure())
 
 
 # ---------------------------------------------------------------------------
@@ -651,17 +653,52 @@ def test_lp_fail_slater_reference_config_on_both(n_implicit, clamps):
             assert np.abs(A1 @ res.y - C1).max() < 1e-3
 
 
-def test_mpc_failing_ldlt_waits_for_the_supernodal_path():
-    """tests/test_failure_corpus.py::test_mpc_failing_ldlt_graceful places
-    every block on a sparse variable subset, which the JAX package solves
-    on the supernodal KKT path: the port raises item 13 at the first."""
+def test_mpc_failing_ldlt_graceful_in_both(clamps):
+    """tests/test_failure_corpus.py::test_mpc_failing_ldlt_graceful: a T=3
+    MPC chain whose every block lies on a sparse variable subset, so both
+    packages solve it on the supernodal KKT path (LDLT).  Its own
+    assertion, a finite y, holds in both, with the same ``solved`` and
+    ``fail``; the trajectory too where no pivot was clamped."""
+    rng = np.random.default_rng(5)
     T, nu, nx = 3, 1, 2
-    p = ct.Program(T * (nu + nx + 2), device="cpu")
-    D = np.hstack([np.ones((nx, nu)), -np.eye(nx)])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        p.add_equality_constraint(D, np.ones(nx), variables=[T * nx, 0, 1])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        p.add_quadratic_cost_epigraph(np.eye(nu), [T * nx], T * (nu + nx))
+    Ai = rng.uniform(-1, 1, (nx, nx))
+    Bi = rng.uniform(-1, 1, (nx, nu))
+    f = rng.uniform(-1, 1, nx)
+    Hxu = rng.uniform(-1, 1, (2, nu))
+    gxu = rng.uniform(-1, 1, 2)
+
+    def input_vars(i):
+        return list(range(T * nx + i * nu, T * nx + (i + 1) * nu))
+
+    def state_vars(i):
+        return list(range((i - 1) * nx, i * nx))
+
+    def stage_vars(i):
+        return (state_vars(i) if i > 0 else []) + input_vars(i) + state_vars(i + 1)
+
+    def build(prog):
+        epigraph = T * (nu + nx)
+        for i in range(T):
+            D = np.hstack([Ai, Bi, -np.eye(nx)] if i > 0 else [Bi, -np.eye(nx)])
+            prog.add_equality_constraint(D, f, variables=stage_vars(i))
+            if 0 < i < T - 1:
+                prog.add_linear_constraint(Hxu, gxu, variables=input_vars(i))
+            prog.add_quadratic_cost_epigraph(np.eye(nu), input_vars(i), epigraph)
+            prog.add_quadratic_cost_epigraph(np.eye(nx), state_vars(i + 1),
+                                             epigraph + 1)
+            epigraph += 2
+
+    jp, tp = _both(T * (nu + nx + 2), build)
+    assert tp._kkt_structure() == tuple(jp._kkt_structure())
+    jr, tr = _solve(jp, tp, -np.ones(T * (nu + nx + 2)), prepare_dual_variables=True,
+                    inv_sqrt_mu_max=100.0, final_centering_tolerance=1.0,
+                    infeasibility_threshold=2e6, final_centering_steps=5,
+                    kkt_solver=ct.KKT_SOLVER_LDLT, iterative_refinement_iterations=2,
+                    max_iterations=60)
+    assert clamps  # the supernodal LDLT ran
+    _assert_same_outcome(tr, jr)
+    if not any(clamps):
+        _assert_same_trajectory(tr, jr)
 
 
 # ---------------------------------------------------------------------------

@@ -17,8 +17,8 @@ Tolerances, per case (the ``tol`` argument of each comparison):
   rounds differently in XLA and PyTorch, and the trajectory carries that;
 * iteration counts and ``solved`` equal everywhere.
 
-``test_sparse_instance``'s second LMI covers variables 1 and 2: the port
-raises item 13 (the supernodal KKT path) where the JAX package solves.
+``test_sparse_instance``'s second LMI covers variables 1 and 2, which
+both packages solve on the supernodal KKT path.
 The copied preprocess.py must give the JAX one's arrays to the bit.
 """
 
@@ -104,20 +104,23 @@ def test_random_instance_mixed_lp_lmi():
     assert check_errors(err)
 
 
-def test_sparse_instance_raises_item_13_in_the_port():
+def test_sparse_instance():
+    """The second LMI covers variables 1 and 2: both packages solve on the
+    supernodal KKT path (the unrolled structure), to the LMI bar."""
     rng = np.random.default_rng(1)
     n = 4
     A1 = np.stack([randsym(n, rng) for _ in range(2)])
     A2 = np.stack([randsym(n, rng) for _ in range(2)])
 
-    def build(prog):
+    def case(mod):
+        prog = _conex(mod, 3)
         prog.AddSparseLinearMatrixInequality(A1, np.eye(n), np.arange(0, 2))
         prog.AddSparseLinearMatrixInequality(A2, np.eye(n), np.arange(1, 3))
-        return prog
+        return prog, prog.Maximize(np.ones(3))
 
-    assert build(_conex(jif, 3)).Maximize(np.ones(3)).status
-    with pytest.raises(NotImplementedError, match="item 13"):
-        build(_conex(tif, 3)).Maximize(np.ones(3))
+    prog, sol = _both(case, LMI)
+    assert sol.status
+    assert [blk.vars_ for blk in prog._prog._blocks] == [None, (1, 2)]
 
 
 def _tridiagonal_lmi(mod, d):

@@ -499,9 +499,11 @@ def test_hermitian_guards_raise_the_same_errors():
         for args, msg in cases:
             with pytest.raises(ValueError, match=msg):
                 p.add_hermitian_constraint(*args)
-    tp = ct.Program(3, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tp.add_hermitian_constraint(A, C, variables=[1, 2])
+    # A variable subset is accepted (the supernodal KKT path), as in JAX.
+    jp, tp = conex_tpu.Program(3), ct.Program(3, device="cpu")
+    for p in (jp, tp):
+        p.add_hermitian_constraint(A, C, variables=[1, 2])
+    assert tp._blocks[0].vars_ == jp._blocks[0].vars_ == (1, 2)
 
 
 def test_hermitian_updates_match_jax():

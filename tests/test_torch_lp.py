@@ -350,11 +350,14 @@ def test_add_linear_constraint_checks_like_jax():
         p.add_linear_constraint(np.ones((3, 2)), np.ones(2))
     with pytest.raises(ValueError, match="duplicate"):
         p.add_linear_constraint(np.ones((3, 2)), np.ones(3), variables=[0, 0])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        p.add_linear_constraint(np.ones((3, 1)), np.ones(3), variables=[1])
     assert p.add_linear_constraint(np.ones((3, 2)), np.ones(3), variables=[0, 1]) == 0
     assert isinstance(p._blocks[0], LinearCone)
-    assert p._blocks[0].A.shape == (1, 3, 2)
+    assert p._blocks[0].A.shape == (1, 3, 2) and p._blocks[0].vars_ is None
+    # A variable subset is a sparse block (the supernodal KKT path), as in JAX.
+    jp = conex_tpu.Program(2)
+    assert p.add_linear_constraint(np.ones((3, 1)), np.ones(3), variables=[1]) == 1
+    jp.add_linear_constraint(np.ones((3, 1)), np.ones(3), variables=[1])
+    assert p._blocks[1].vars_ == jp._blocks[0].vars_ == (1,)
 
 
 def test_verify_known_answer_on_the_port():

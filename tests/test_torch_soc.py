@@ -370,8 +370,10 @@ def test_program_soc_shape_errors():
         ct.Program(2, device="cpu").add_soc_constraint(A, c)
     with pytest.raises(ValueError, match="duplicate"):
         p.add_soc_constraint(A, c, variables=[0, 0, 1])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        p.add_soc_constraint(A, c, variables=[2, 1, 0])
+    # A permuted subset is a sparse block (the supernodal KKT path).
+    q = ct.Program(3, device="cpu")
+    assert q.add_soc_constraint(A, c, variables=[2, 1, 0]) == 0
+    assert q._blocks[0].vars_ == (2, 1, 0)
     # The dense subset named explicitly, and a batch of two cones, are taken.
     assert p.add_soc_constraint(A, c, variables=[0, 1, 2]) == 0
     assert p.add_soc_constraint(np.stack([A, A]), np.stack([c, 2 * c])) == 1

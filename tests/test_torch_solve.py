@@ -240,8 +240,11 @@ def test_program_known_answer_matches_jax():
 def test_program_rejects_what_is_not_ported():
     A, C, _ = _lambda_min_sdp(n=3)
     p = ct.Program(2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        p.add_lmi_constraint(A, C, variables=[1])
+    # A variable subset is ported (the supernodal KKT path): taken as a
+    # sparse block.
+    q = ct.Program(2, device="cpu")
+    assert q.add_lmi_constraint(A, C, variables=[1]) == 0
+    assert q._blocks[0].vars_ == (1,)
     with pytest.raises(ValueError, match="symmetric"):
         p.add_lmi_constraint(A + np.triu(np.ones((3, 3)), 1)[None], C)
     with pytest.raises(ValueError, match="empty program"):
