@@ -132,6 +132,26 @@ Phases, each printing its own lines; any failure exits non-zero:
    per iteration, per KKT factor and the busy share of a profiled solve of
    SPARSE_PROFILE_ITERATIONS iterations; K1's time at the chain's shape
    (1, 1, 6, 8) against its plain version;
+4h. multi-device execution (parallel/sharded.py) on the one card, every
+   rank on it (NCCL allows one rank per device, so the multi-rank runs use
+   gloo over CUDA tensors; no time here is a scaling figure): 4h-a, one
+   program of SHARDED_SHAPE's 256 LMI cones (m = 50, n = 100, f32, the
+   bench's 30 fixed iterations, built feasible as
+   benchmarks/weak_scaling.py does, on the card from a seed) through the
+   unsharded solve, then solve_cone_sharded on a one-rank NCCL mesh (y
+   within SHARDED_Y_LIMIT of the unsharded solve) and on two and four gloo
+   ranks spawned by parallel/launch.py (each runs K1 at (1, 256 / tp, 50,
+   100)): 30 iterations, no failure and K1 30 times in every rank, the
+   ranks' y equal to the bit; 4h-b, tests/test_distributed.py's sparse SOC
+   chain at SHARDED_CHAIN (40 cliques, B = 4, f64) on four gloo ranks with
+   both distributed structures, y within SHARDED_CHAIN_LIMIT of the
+   unsharded supernodal solve on the card and on the CPU; 4h-c,
+   solve_scenarios_cone_sharded on a (2, 2) mesh at SHARDED_GRID (f64),
+   y within SHARDED_GRID_LIMIT of the per-scenario solves; each run prints
+   its wall, Newton it/s, launches per iteration and its all-reduces
+   (count and host time, from the profiler); K1 at one rank's shape
+   (1, 64, 50, 100) against its plain version; 4h-d, utils/profiling.py's
+   phase_timings of one 100 x 100 LMI program with m = 50 (f32);
 5. a known answer: a small f64 SDP through Program(device="cuda"), against
    lambda_min(C) and the CPU solve;
 5b. a known SOC answer through Program(device="cuda"): max b'y s.t.
@@ -165,8 +185,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    partials.
 
 The last lines are the whole run's time, the kernels' JSON record (K2's
-and K3-K6's with their plans, K1's with its launches on phases 4, 4d, 4g
-and 5e; with each kernel's bound:
+and K3-K6's with their plans, K1's with its launches on phases 4, 4d, 4g,
+4h (every rank's) and 5e; with each kernel's bound:
 the larger of its operations over the peak rate of the units that do
 them and its bytes over 3.35 TB/s; every Schur kernel's products run on
 the tensor cores, three TF32 passes per f32 product at 495 TFLOP/s), the
@@ -508,7 +528,6 @@ def bench_workload(device):
     import numpy as np
     import torch
 
-    from conex_tpu_torch import SolverConfig
     from conex_tpu_torch.cones.psd import DenseLMICone, make_psd_state
 
     B, n, m = 256, 100, 50
@@ -531,14 +550,16 @@ def bench_workload(device):
         b_scaling=torch.ones((B,), dtype=torch.float32, device=device),
         c_scaling=torch.ones((B,), dtype=torch.float32, device=device),
     )
-    config = SolverConfig(
-        max_iterations=iters,
-        final_centering_steps=0,
-        inv_sqrt_mu_max=1e15,
-        fixed_iterations=True,
-        inv_sqrt_mu_cap_scaled=100.0,
-    )
-    return blk, torch.from_numpy(b).to(device), init_ws, scalars, config
+    return blk, torch.from_numpy(b).to(device), init_ws, scalars, bench_config(iters)
+
+
+def bench_config(iters):
+    """bench.py's configuration: fixed iterations, scaled-k cap 100."""
+    from conex_tpu_torch import SolverConfig
+
+    return SolverConfig(max_iterations=iters, final_centering_steps=0,
+                        inv_sqrt_mu_max=1e15, fixed_iterations=True,
+                        inv_sqrt_mu_cap_scaled=100.0)
 
 
 def first_failure_report(blk, b, init_ws, scalars, config, res, s):
@@ -2649,6 +2670,426 @@ def phase_sparse(device):
     return k1_total
 
 
+# ---------------------------------------------------------------------------
+# 4h: multi-device execution (parallel/sharded.py) on one card
+# ---------------------------------------------------------------------------
+
+SHARDED_SHAPE = (256, 50, 100)  # B cones, m, n: dev_pallas_probe.py:207-217
+SHARDED_ITERATIONS = 30
+SHARDED_RANKS = (2, 4)  # gloo ranks spawned on the one card
+# y against the unsharded solve, relative: one NCCL rank gives the same bits;
+# gloo's sums in another order moved f32 y by 4.1e-7 and 4.8e-7 at tp = 2
+# and 4 on an H100.
+SHARDED_Y_LIMIT = 1e-5
+# tests/test_distributed.py:149-211's sparse SOC chain at 40 cliques, B = 4,
+# f64: the distributed solves against the unsharded supernodal one (the JAX
+# test's own bound), and the unsharded one on the card against the CPU.
+SHARDED_CHAIN = (40, 4, 3)  # blocks (cliques), cones per block, cone dim
+SHARDED_CHAIN_ITERATIONS = 40
+SHARDED_CHAIN_LIMIT = 1e-8
+SHARDED_GRID = (2, 4, 5, 3)  # S, B, n, m: tests/test_parallel.py's 2D case
+SHARDED_GRID_ITERATIONS = 25
+SHARDED_GRID_LIMIT = 1e-9  # y against the per-scenario solves (JAX's bound)
+SHARDED_PROFILE_ITERATIONS = 2  # the profiled solve of each run
+PHASE_TIMINGS_SHAPE = (50, 100)  # m, n of 4h-d's LMI program
+RANK_TIMEOUT = 300.0
+
+
+def sharded_lmi(device):
+    """4h-a's program: SHARDED_SHAPE's B LMI cones in f32, built feasible as
+    benchmarks/weak_scaling.py:41-50 does (C = I, b from a PSD X0), made on
+    the card from a seed, so that every process on it makes the same one;
+    with the bench's fixed-iteration configuration (bench_config)."""
+    import torch
+
+    from conex_tpu_torch import DenseLMICone
+    from conex_tpu_torch.cones.psd import make_psd_state
+
+    B, m, n = SHARDED_SHAPE
+    g = torch.Generator(device=device).manual_seed(0)
+    kw = dict(dtype=torch.float32, device=device)
+    A = torch.rand(B, m, n, n, generator=g, **kw) * 2 - 1
+    A = 0.5 * (A + A.transpose(-2, -1))
+    X0 = torch.rand(B, n, n, generator=g, **kw) * 2 - 1
+    eye = torch.eye(n, **kw)
+    X0 = X0 @ X0.transpose(-2, -1) + 0.1 * eye
+    b = torch.einsum("bvij,bij->v", A, X0)
+    C = eye.expand(B, n, n).contiguous()
+    scalars = dict(k=torch.zeros((), **kw), b_scaling=torch.ones((), **kw),
+                   c_scaling=torch.ones((), **kw))
+    config = bench_config(SHARDED_ITERATIONS)
+    return (DenseLMICone(A=A, C=C),), b, (make_psd_state(C.clone()),), scalars, config
+
+
+def soc_chain_blocks(device):
+    """4h-b's program: tests/test_distributed.py:149-211's sparse SOC chain
+    (block i: B Lorentz cones of dimension dim + 1 on the variables
+    {i, i+1, i+2}, a feasible objective) at SHARDED_CHAIN, f64, seed 7;
+    (blocks, init ws, b, cliques), one program without the scenario axis."""
+    import numpy as np
+    import torch
+
+    from conex_tpu_torch import SOCCone
+
+    n_blocks, B, dim = SHARDED_CHAIN
+    rng = np.random.default_rng(7)
+    blocks, ws, cliques = [], [], []
+    b = np.zeros(n_blocks + 2)
+    for i in range(n_blocks):
+        vars_ = (i, i + 1, i + 2)
+        A = rng.uniform(-1, 1, (B, dim + 1, len(vars_)))
+        x0 = np.concatenate([np.full((B, 1), 2.0),
+                             rng.uniform(-0.5, 0.5, (B, dim))], axis=1)
+        blocks.append(SOCCone(A=torch.tensor(A, device=device),
+                              c=torch.tensor(x0, device=device), vars_=vars_))
+        e = torch.zeros((B, dim + 1), dtype=torch.float64, device=device)
+        e[:, 0] = 1.0
+        ws.append(e)
+        cliques.append(list(vars_))
+        b[list(vars_)] += 0.5 * A[:, 0, :].sum(axis=0)
+    return tuple(blocks), tuple(ws), torch.tensor(b, device=device), cliques
+
+
+def grid_lmi(device):
+    """4h-c's scenarios: tests/test_parallel.py's 2D case (seed 2) at
+    SHARDED_GRID, f64: (A (S, B, m, n, n), C (S, B, n, n), b (S, m))."""
+    import numpy as np
+    import torch
+
+    S, B, n, m = SHARDED_GRID
+    rng = np.random.default_rng(2)
+    As, Cs, bs = [], [], []
+    for _ in range(S):
+        A = rng.uniform(-1, 1, (B, m, n, n))
+        A = 0.5 * (A + np.swapaxes(A, 2, 3))
+        X0 = rng.uniform(-1, 1, (B, n, n))
+        X0 = np.einsum("bij,bkj->bik", X0, X0) + 0.1 * np.eye(n)
+        As.append(A)
+        Cs.append(np.broadcast_to(np.eye(n), (B, n, n)).copy())
+        bs.append(np.einsum("bvij,bij->v", A, X0))
+    return tuple(torch.tensor(np.stack(x), device=device) for x in (As, Cs, bs))
+
+
+def collective_profile(fn):
+    """One call of ``fn`` under torch.profiler: (kernel launch calls,
+    device-kernel ms, all-reduce count, their host ms, the device ms of
+    NCCL kernels).  The all-reduces are the port's ALL_REDUCE_SPAN spans
+    (parallel/collectives.py): each covers one blocking all-reduce."""
+    import json
+    import os
+    import tempfile
+
+    import torch
+
+    from conex_tpu_torch.parallel.collectives import ALL_REDUCE_SPAN
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    launches, device_ms, spans, span_ms, nccl_ms = 0, 0.0, 0, 0.0, 0.0
+    for e in events:
+        cat, name, ms = e.get("cat"), e.get("name", ""), e.get("dur", 0.0) / 1e3
+        if cat in DEVICE_EVENTS:
+            device_ms += ms
+            if "nccl" in name.lower():
+                nccl_ms += ms
+        elif cat in ("cuda_runtime", "cuda_driver") and name in LAUNCH_CALLS:
+            launches += 1
+        elif cat == "user_annotation" and name == ALL_REDUCE_SPAN:
+            spans += 1
+            span_ms += ms
+    return launches, device_ms, spans, span_ms, nccl_ms
+
+
+def sharded_record(label, run, config, reps):
+    """Drive ``run(config)`` (a solve that ends in a synchronize) once with
+    K1's count set to 0, time ``reps`` more runs (none: the first run's
+    wall), and profile a solve of SHARDED_PROFILE_ITERATIONS iterations;
+    the record of this rank, its profile per iteration."""
+    from conex_tpu_torch.cones import psd_schur
+
+    psd_schur.schur_kernel.launches = 0
+    t0 = time.perf_counter()
+    res = run(config)
+    first = time.perf_counter() - t0
+    k1 = psd_schur.schur_kernel.launches
+    wall = best_wall(lambda: run(config), reps) if reps else first
+    its = SHARDED_PROFILE_ITERATIONS
+    launches, device_ms, spans, span_ms, nccl_ms = collective_profile(
+        lambda: run(config.replace(max_iterations=its)))
+    return dict(label=label, y=res.y.cpu(), iterations=int(res.num_iterations.max()),
+                fail=bool(res.fail.any()), solved=res.solved.cpu(), k1=k1,
+                first=first, wall=wall, launches=launches / its,
+                device_ms=device_ms / its, spans=spans / its, span_ms=span_ms / its,
+                nccl_ms=nccl_ms / its)
+
+
+def sharded_cone_run(mesh, device):
+    """4h-a in this rank: the program cone-sharded over the mesh's "tp"."""
+    import torch
+
+    from conex_tpu_torch.parallel.sharded import solve_cone_sharded
+
+    blocks, b, ws, scalars, config = sharded_lmi(device)
+
+    def run(config):
+        res = solve_cone_sharded(blocks, (), b, ws, scalars, config, mesh)
+        torch.cuda.synchronize()
+        return res
+
+    return sharded_record(f"tp={mesh.size()}", run, config, reps=1)
+
+
+def sharded_chain_runs(mesh, device):
+    """4h-b in this rank: the SOC chain on both distributed structures."""
+    import torch
+
+    from conex_tpu_torch import SolverConfig
+    from conex_tpu_torch.parallel.sharded import solve_cone_sharded
+    from conex_tpu_torch.supernodal.dist_compressed import DistributedCompressedStructure
+    from conex_tpu_torch.supernodal.distributed import DistributedSupernodalStructure
+
+    blocks, ws, b, cliques = soc_chain_blocks(device)
+    scalars = dict(k=torch.zeros((), dtype=torch.float64, device=device),
+                   b_scaling=torch.ones((), dtype=torch.float64, device=device),
+                   c_scaling=torch.ones((), dtype=torch.float64, device=device))
+    config = SolverConfig(max_iterations=SHARDED_CHAIN_ITERATIONS)
+    out = {}
+    for kind in (DistributedSupernodalStructure, DistributedCompressedStructure):
+        structure = kind.from_cliques(cliques, len(b), mesh.size())
+
+        def run(config):
+            res = solve_cone_sharded(blocks, (), b, ws, scalars, config, mesh,
+                                     kkt_structure=structure)
+            torch.cuda.synchronize()
+            return res
+
+        out[kind.__name__] = sharded_record(kind.__name__, run, config, reps=0)
+    return out
+
+
+def sharded_grid_run(mesh, device):
+    """4h-c in this rank: the scenarios x cones solve on the (2, 2) mesh."""
+    import torch
+
+    from conex_tpu_torch import DenseLMICone, SolverConfig
+    from conex_tpu_torch.cones.psd import make_psd_state
+    from conex_tpu_torch.parallel.sharded import solve_scenarios_cone_sharded
+
+    A, C, b = grid_lmi(device)
+    S, B, n, m = SHARDED_GRID
+    scalars = dict(k=torch.zeros((S,), dtype=torch.float64, device=device),
+                   b_scaling=torch.ones((S,), dtype=torch.float64, device=device),
+                   c_scaling=torch.ones((S,), dtype=torch.float64, device=device))
+
+    def run(config):
+        res = solve_scenarios_cone_sharded(
+            (DenseLMICone(A=A, C=C),), (), b, (make_psd_state(C.clone()),), scalars,
+            config, mesh, total_rank=B * n)
+        torch.cuda.synchronize()
+        return res
+
+    return sharded_record("dp=2 x tp=2", run,
+                          SolverConfig(max_iterations=SHARDED_GRID_ITERATIONS), reps=0)
+
+
+def sharded_rank(rank, world):
+    """The work of one gloo rank on the card (spawned by phase_sharded):
+    4h-a at tp = world and, on four ranks, 4h-b and 4h-c."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    device = torch.device(torch.cuda.current_device())  # the card launch.py set
+    tp = init_device_mesh("cuda", (world,), mesh_dim_names=("tp",))
+    out = {"a": sharded_cone_run(tp, device)}
+    if world == 4:
+        out["b"] = sharded_chain_runs(tp, device)
+        out["c"] = sharded_grid_run(init_device_mesh("cuda", (2, 2),
+                                                     mesh_dim_names=("dp", "tp")), device)
+    return out
+
+
+def log_run(label, r, card):
+    log(f"[4h sharded] {label} {r['label']}: {r['iterations']} iterations, fail "
+        f"{r['fail']}; wall {r['wall']:.4f} s (first {r['first']:.3f} s), "
+        f"{r['iterations'] / r['wall']:.2f} Newton it/s; per iteration of a profiled "
+        f"solve of {SHARDED_PROFILE_ITERATIONS}: {r['launches']:.1f} launches, "
+        f"{r['device_ms']:.3f} ms of device-kernel time, {r['spans']:.1f} all-reduces "
+        f"taking {r['span_ms']:.3f} ms on the host (NCCL kernels {r['nccl_ms']:.3f} "
+        f"ms); K1 launches {r['k1']}; {card}")
+
+
+def phase_sharded(device):
+    """4h: multi-device execution on the one card.  Returns K1's launches
+    in 4h's cone-sharded solves (every rank's)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from conex_tpu_torch import DenseLMICone, Program, SolverConfig
+    from conex_tpu_torch.cones import psd_schur
+    from conex_tpu_torch.cones.psd import make_psd_state
+    from conex_tpu_torch.parallel.launch import run_ranks
+    from conex_tpu_torch.solver.loop import _add_scenario, _solve_impl, _strip_scenario, solve
+    from conex_tpu_torch.supernodal.solver import SupernodalStructure
+    from conex_tpu_torch.utils.profiling import phase_timings
+
+    start = time.perf_counter()
+    card = card_name_and_power_limit()
+    log(f"[4h sharded] {card}; every rank below shares this one card: no time "
+        "here is a scaling figure")
+
+    # 4h-a: the unsharded solve, then one NCCL rank.
+    blocks, b, ws, scalars, config = sharded_lmi(device)
+    ref = solve(blocks, (), b, ws, scalars, config)
+    torch.cuda.synchronize()
+    wall = best_wall(lambda: solve(blocks, (), b, ws, scalars, config), reps=1)
+    log(f"[4h sharded] 4h-a unsharded solve of {SHARDED_SHAPE[0]} cones (m, n = "
+        f"{SHARDED_SHAPE[1:]}, f32): {int(ref.num_iterations)} iterations, fail "
+        f"{bool(ref.fail)}, wall {wall:.4f} s, "
+        f"{SHARDED_ITERATIONS / wall:.2f} Newton it/s; {card}")
+    del blocks, ws
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(f"{tmp}/store", 1),
+                                rank=0, world_size=1,
+                                device_id=torch.device(torch.cuda.current_device()))
+        try:
+            nccl = sharded_cone_run(init_device_mesh("cuda", (1,), mesh_dim_names=("tp",)),
+                                    device)
+        finally:
+            dist.destroy_process_group()
+    log_run("4h-a NCCL", nccl, card)
+    err = float((nccl["y"] - ref.y.cpu()).abs().max() / ref.y.abs().max().cpu())
+    log(f"[4h sharded] 4h-a one NCCL rank against the unsharded solve: y rel err "
+        f"{err:.3e} (limit {SHARDED_Y_LIMIT})")
+    if (nccl["iterations"] != SHARDED_ITERATIONS or nccl["fail"] or bool(ref.fail)
+            or not err <= SHARDED_Y_LIMIT or nccl["k1"] != SHARDED_ITERATIONS):
+        fail(f"4h-a: the NCCL rank's solve is not the unsharded one (K1 launches "
+             f"{nccl['k1']})")
+    k1_total = nccl["k1"]
+    records = {}
+    for world in SHARDED_RANKS:
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            records[world] = run_ranks(sharded_rank, world, workdir=tmp,
+                                       timeout=RANK_TIMEOUT)
+        log(f"[4h sharded] {world} gloo ranks spawned and joined in "
+            f"{time.perf_counter() - t0:.1f} s")
+    y_ref = ref.y.cpu()
+    for world, ranks in records.items():
+        for rank, out in enumerate(ranks):
+            r = out["a"]
+            log_run(f"4h-a gloo rank {rank}/{world}", r, card)
+            err = float((r["y"] - y_ref).abs().max() / y_ref.abs().max())
+            log(f"[4h sharded] 4h-a gloo rank {rank}/{world}: y rel err against the "
+                f"unsharded solve {err:.3e} (limit {SHARDED_Y_LIMIT}); K1 at (1, "
+                f"{SHARDED_SHAPE[0] // world}, {SHARDED_SHAPE[1]}, {SHARDED_SHAPE[2]})")
+            if (r["iterations"] != SHARDED_ITERATIONS or r["fail"]
+                    or not err <= SHARDED_Y_LIMIT or r["k1"] != SHARDED_ITERATIONS):
+                fail(f"4h-a: rank {rank} of {world}: {r['iterations']} iterations, "
+                     f"fail {r['fail']}, y rel err {err}, K1 launches {r['k1']}")
+            if not torch.equal(r["y"], ranks[0]["a"]["y"]):
+                fail(f"4h-a: the ranks of {world} return different y")
+            k1_total += r["k1"]
+
+    # 4h-b: the distributed KKT against the unsharded supernodal solve.
+    four = records[4]
+    chain_ref = {}
+    for key, where in (("card", device), ("CPU", torch.device("cpu"))):
+        blocks, ws, b, cliques = soc_chain_blocks(where)
+        scalars = dict(k=torch.zeros((1,), dtype=torch.float64, device=where),
+                       b_scaling=torch.ones((1,), dtype=torch.float64, device=where),
+                       c_scaling=torch.ones((1,), dtype=torch.float64, device=where))
+        config = SolverConfig(max_iterations=SHARDED_CHAIN_ITERATIONS)
+        t0 = time.perf_counter()
+        res = _strip_scenario(_solve_impl(
+            _add_scenario(blocks), (), b[None], _add_scenario(ws), scalars, config,
+            kkt_structure=SupernodalStructure.from_cliques(cliques, len(b))))
+        chain_ref[key] = res
+        log(f"[4h sharded] 4h-b unsharded supernodal solve on the {key}: "
+            f"{int(res.num_iterations)} iterations, solved {bool(res.solved)}, "
+            f"wall {time.perf_counter() - t0:.3f} s")
+    y_card, y_cpu = chain_ref["card"].y.cpu(), chain_ref["CPU"].y
+    err = float((y_card - y_cpu).abs().max())
+    log(f"[4h sharded] 4h-b unsharded: card against CPU max |dy| {err:.3e} "
+        f"(limit {SHARDED_CHAIN_LIMIT})")
+    if not (err <= SHARDED_CHAIN_LIMIT and bool(chain_ref["card"].solved)):
+        fail("4h-b: the unsharded chain on the card is not the CPU's")
+    for rank, out in enumerate(four):
+        for name, r in out["b"].items():
+            log_run(f"4h-b gloo rank {rank}/4", r, card)
+            errs = [float((r["y"] - y).abs().max()) for y in (y_card, y_cpu)]
+            log(f"[4h sharded] 4h-b {name} rank {rank}/4: max |dy| against the "
+                f"unsharded solve on the card {errs[0]:.3e}, on the CPU {errs[1]:.3e} "
+                f"(limit {SHARDED_CHAIN_LIMIT})")
+            if r["fail"] or not bool(r["solved"].all()) or not max(errs) <= SHARDED_CHAIN_LIMIT:
+                fail(f"4h-b: {name} on rank {rank} is not the unsharded solve")
+
+    # 4h-c: the 2D mesh against the per-scenario solves on the card.
+    A, C, b = grid_lmi(device)
+    one = {k: torch.tensor(v, dtype=torch.float64, device=device)
+           for k, v in (("k", 0.0), ("b_scaling", 1.0), ("c_scaling", 1.0))}
+    ys = torch.stack([solve((DenseLMICone(A=A[s], C=C[s]),), (), b[s],
+                            (make_psd_state(C[s].clone()),), one,
+                            SolverConfig(max_iterations=SHARDED_GRID_ITERATIONS)).y
+                      for s in range(SHARDED_GRID[0])]).cpu()
+    for rank, out in enumerate(four):
+        r = out["c"]
+        log_run(f"4h-c gloo rank {rank}/4", r, card)
+        err = float((r["y"] - ys).abs().max())
+        log(f"[4h sharded] 4h-c rank {rank}/4 (S, B, n, m = {SHARDED_GRID}, f64): "
+            f"max |dy| against the per-scenario solves {err:.3e} (limit "
+            f"{SHARDED_GRID_LIMIT})")
+        if r["fail"] or not err <= SHARDED_GRID_LIMIT or not r["k1"]:
+            fail(f"4h-c: rank {rank}'s 2D solve is not the per-scenario solves")
+        k1_total += r["k1"]
+
+    # K1 at one rank's shape on four ranks, against its plain version.
+    shape = (1, SHARDED_SHAPE[0] // 4, *SHARDED_SHAPE[1:])
+    A, W, C = (x.float() for x in schur_inputs(*shape, seed=3, device=device))
+    got = psd_schur.schur_kernel(A, W, C)
+    plain = psd_schur.schur_plain(A, W, C)
+    err = rel_err(got, psd_schur.schur_plain(*(x.double() for x in (A, W, C))))
+    ms = {"plain": [], "kernel": []}
+    fns = {"plain": lambda: psd_schur.schur_plain(A, W, C),
+           "kernel": lambda: psd_schur.schur_kernel(A, W, C)}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        ms[name].append(time_ms(fns[name], 20))
+    log(f"[4h sharded] K1 at {shape} f32: rel err vs the f64 oracle {err:.3e} "
+        f"(limit 1e-4), max |kernel - plain| "
+        f"{max(float((g - p).abs().max()) for g, p in zip(got, plain)):.3e}; ms per "
+        f"call: kernel {ms['kernel']}, plain {ms['plain']} (CUDA events, 20 calls "
+        f"each); bound {schur_bound(shape[1], 1, *shape[2:], tensor_cores=True)}; {card}")
+    if not err <= 1e-4:
+        fail("4h: K1 disagrees with the f64 oracle at one rank's shape")
+
+    # 4h-d: the phase timers on the card.
+    import numpy as np
+
+    m, n = PHASE_TIMINGS_SHAPE
+    rng = np.random.default_rng(0)
+    As = rng.uniform(-1, 1, (m, n, n))
+    prog = Program(m, dtype=torch.float32, device=device)
+    prog.add_lmi_constraint(0.5 * (As + np.swapaxes(As, 1, 2)), 3.0 * np.eye(n))
+    phases = phase_timings(prog, reps=10)
+    log(f"[4h sharded] 4h-d phase_timings of one {n} x {n} LMI program, m = {m}, "
+        f"f32: " + ", ".join(f"{k} {1e3 * v:.4f} ms" for k, v in phases.items())
+        + f"; {card}")
+    if set(phases) != {"assemble", "factor", "solve", "update"} or not all(
+            v > 0 for v in phases.values()):
+        fail(f"4h-d: phase_timings gave {phases}")
+    log(f"[4h sharded] phase {time.perf_counter() - start:.1f} s")
+    return k1_total
+
+
 def phase_probe_entry_points():
     """The two probe harnesses on the card; returns each variant's kernel
     launches in this phase."""
@@ -2741,6 +3182,7 @@ def main():
     phase_qp(device)
     phase_herm(device)
     schur["path_launches"]["4g"] = phase_sparse(device)
+    schur["path_launches"]["4h"] = phase_sharded(device)
     phase_known_answer(device)
     phase_soc_known_answer(device)
     phase_lp_known_answer(device)

@@ -12,7 +12,10 @@ clamped LDLT and QR KKT modes, the Hermitian PSD cones over the complex
 numbers, quaternions and octonions, the supernodal KKT path for programs
 whose blocks cover variable subsets (``supernodal/``: the clique-tree
 ordering, with its C++ version in ``native/``, and the unrolled, padded
-and block-compressed factorizations), and the two front ends
+and block-compressed factorizations), multi-device execution over a
+``torch.distributed`` mesh (``parallel.sharded``: scenario and cone
+sharding, with the distributed supernodal factorizations), the phase
+timers (``utils.profiling``), and the two front ends
 (``interface.Conex`` and ``sedumi.solve_sedumi``, exported lazily).  Each kernel runs on the
 card and its plain PyTorch twin on the CPU.  The package imports torch and
 numpy, never jax.

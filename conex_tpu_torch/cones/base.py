@@ -20,6 +20,7 @@ Interface of a cone block (``w`` is the block's iterate, a NamedTuple of
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -83,3 +84,23 @@ def tree_select(mask, a, b):
         out = [tree_select(mask, x, y) for x, y in zip(a, b)]
         return type(a)(*out) if hasattr(a, "_fields") else tuple(out)
     return torch.where(per_scenario(mask, a.dim()), a, b)
+
+
+def tree_map(fn, tree):
+    """``fn`` applied to every tensor of a (nested) tuple, NamedTuple, dict
+    or block dataclass (its tensor fields); everything else stays as it
+    is."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, tuple):
+        out = [tree_map(fn, x) for x in tree]
+        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
+    if isinstance(tree, dict):
+        return {key: tree_map(fn, x) for key, x in tree.items()}
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: fn(getattr(tree, f.name))
+            for f in dataclasses.fields(tree)
+            if isinstance(getattr(tree, f.name), torch.Tensor)
+        })
+    return tree

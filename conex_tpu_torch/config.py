@@ -5,9 +5,7 @@ defaults, so a configuration written for the JAX package means the same
 thing here.  The copy exists because importing ``conex_tpu.config`` would
 import ``conex_tpu``, which imports jax; a test keeps the two in step.
 
-Every field is implemented by the solve loop; the supernodal KKT path and
-sharding, which no field selects, raise with the ROADMAP item that brings
-them.
+Every field is implemented by the solve loop.
 """
 
 from __future__ import annotations
@@ -28,14 +26,6 @@ KKT_SOLVER_QR = 2
 # card are true float32 (TF32 is switched off where a solve starts), and
 # float64 is native.
 SCHUR_PRECISION_MODES = ("default", "x3", "x6", "highest", "float32", "ozaki")
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error for a feature of the JAX package the port does not have
-    yet, naming the ROADMAP item that brings it."""
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1, item {item})"
-    )
 
 
 @dataclasses.dataclass(frozen=True)

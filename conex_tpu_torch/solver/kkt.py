@@ -6,8 +6,10 @@ scenario axis: K is (S, N, N), right-hand sides (S, N), and the fail flag
 flag.  With a supernodal structure (``supernodal/``) the LLT and LDLT
 factor along the clique tree instead: the unrolled and padded structures
 take the dense K, the compressed one its flat (S, buf_size) buffer.  The
-distributed structures of the JAX package are not ported yet and raise
-NotImplementedError naming their ROADMAP item.
+two distributed structures (supernodal/distributed.py, dist_compressed.py)
+factor and solve across the ranks of a process ``group``, the twin of the
+JAX package's ``axis_name``: the distributed one on the dense K, the
+distributed compressed one on its base structure's buffer.
 
 Mode semantics (reference kkt_solver.cc:172-199):
   LLT  - used when there are no equality-constraint duals.
@@ -27,7 +29,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..config import KKT_SOLVER_LDLT, KKT_SOLVER_LLT, KKT_SOLVER_QR, not_ported
+from ..config import KKT_SOLVER_LDLT, KKT_SOLVER_LLT, KKT_SOLVER_QR
 
 # Pivot clamp magnitude (reference RLDLT.h:261-263, 310-318).
 LDLT_PIVOT_CLAMP = 1e-9
@@ -141,17 +143,20 @@ def _ldlt_clamped(K, panel: int = LDLT_PANEL):
 
 
 def _supernodal(structure):
-    """The module that factors and solves on ``structure``."""
-    from ..supernodal import compressed, scan
+    """The module that factors and solves on ``structure``, and whether it
+    runs across the ranks of a group."""
+    from ..supernodal import compressed, dist_compressed, distributed, scan
     from ..supernodal import solver as unrolled
 
-    for module, kind in ((compressed, compressed.CompressedSupernodalStructure),
-                         (scan, scan.ScanSupernodalStructure),
-                         (unrolled, unrolled.SupernodalStructure)):
+    for module, kind, spread in (
+            (compressed, compressed.CompressedSupernodalStructure, False),
+            (scan, scan.ScanSupernodalStructure, False),
+            (unrolled, unrolled.SupernodalStructure, False),
+            (dist_compressed, dist_compressed.DistributedCompressedStructure, True),
+            (distributed, distributed.DistributedSupernodalStructure, True)):
         if isinstance(structure, kind):
-            return module
-    raise not_ported(f"the supernodal structure {type(structure).__name__} "
-                     "(the distributed structures)", "14")
+            return module, spread
+    raise TypeError(f"unknown supernodal structure {type(structure).__name__}")
 
 
 def _sparse(structure, mode: int) -> bool:
@@ -159,19 +164,27 @@ def _sparse(structure, mode: int) -> bool:
     return structure is not None and mode in (KKT_SOLVER_LLT, KKT_SOLVER_LDLT)
 
 
-def factor(K, mode: int, structure=None, island_dtype=None) -> KKTFactor:
-    """Factor the (S, N, N) KKT matrices, or with a
-    CompressedSupernodalStructure the (S, buf_size) compressed buffers.
+def factor(K, mode: int, structure=None, group=None,
+           island_dtype=None) -> KKTFactor:
+    """Factor the (S, N, N) KKT matrices, or with a (distributed)
+    compressed structure the (S, buf_size) compressed buffers.
     ``structure``: optional supernodal structure to factor along (QR
-    ignores it).  ``island_dtype``: optional precision island (e.g.
-    torch.float64) for the dense path — K is cast up before factorization
-    and ``solve`` casts solutions back to the rhs dtype."""
+    ignores it); a distributed one factors across the ranks of ``group``,
+    every rank holding the same K.  ``island_dtype``: optional precision
+    island (e.g. torch.float64) for the dense path — K is cast up before
+    factorization and ``solve`` casts solutions back to the rhs dtype."""
     if island_dtype is not None and structure is None:
         K = K.to(island_dtype)
     if _sparse(structure, mode):
-        sn = _supernodal(structure)
+        sn, spread = _supernodal(structure)
         fn = sn.factor_llt if mode == KKT_SOLVER_LLT else sn.factor_ldlt
-        fac, fail = fn(K, structure)
+        if spread:
+            if group is None:
+                raise ValueError(
+                    f"{type(structure).__name__} requires axis_name (a process group)")
+            fac, fail = fn(K, structure, group)
+        else:
+            fac, fail = fn(K, structure)
         return KKTFactor(matrix=K, factor=fac, fail=fail)
     if mode == KKT_SOLVER_LLT:
         L, fail = _cholesky(K)
@@ -215,17 +228,19 @@ _SOLVES = {KKT_SOLVER_LLT: _solve_llt, KKT_SOLVER_LDLT: _solve_ldlt,
 
 def _residual_product(matrix, structure, x):
     """K x for refinement: from the compressed buffer, or the dense K."""
-    from ..supernodal import compressed
+    from ..supernodal import compressed, dist_compressed
 
+    if isinstance(structure, dist_compressed.DistributedCompressedStructure):
+        structure = structure.base
     if isinstance(structure, compressed.CompressedSupernodalStructure):
         return compressed.matvec(matrix, structure, x)
     return (matrix @ x[..., None])[..., 0]
 
 
 def solve(f: KKTFactor, b, mode: int, refinement_steps: int = 0,
-          structure=None):
+          structure=None, group=None):
     """Solve K x = b per scenario, with optional iterative refinement;
-    ``structure`` as given to ``factor``.
+    ``structure`` and ``group`` as given to ``factor``.
 
     reference: SolveInPlace + refinement loop, kkt_solver.cc:220-263.
     """
@@ -233,11 +248,12 @@ def solve(f: KKTFactor, b, mode: int, refinement_steps: int = 0,
         raise ValueError(f"unknown kkt solver mode {mode}")
     out_dtype = b.dtype
     if _sparse(structure, mode):
-        sn = _supernodal(structure)
+        sn, spread = _supernodal(structure)
         fn = sn.solve_llt if mode == KKT_SOLVER_LLT else sn.solve_ldlt
+        extra = (group,) if spread else ()
 
         def base_solve(fac, rhs):
-            return fn(fac, structure, rhs)
+            return fn(fac, structure, rhs, *extra)
     else:
         base_solve = _SOLVES[mode]
         if structure is None and f.matrix.dtype != b.dtype:

@@ -11,21 +11,30 @@ follows its own branch exactly as under vmap.
 The JAX ``while_loop`` becomes a Python loop of at most ``max_iterations``
 passes.  It stops early only when every scenario is done (one host sync per
 pass); under ``fixed_iterations`` it runs all passes without that sync.
+
+Cone sharding (parallel/sharded.py): with a process ``group`` each rank
+holds a shard of the cone blocks, and every cross-cone aggregation (the
+Schur sums, the norm maxima, the slack-eigenvalue extrema, the line-search
+interval) is an all-reduce over the group (parallel/collectives.py), where
+the JAX package reduces over ``axis_name``.  Everything after a reduction
+is replicated, so every host decision of the loop (its early exit) reads
+the same values on every rank and the ranks make the same collectives.
 """
 
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 from typing import NamedTuple, Tuple
 
 import torch
 
-from ..cones.base import local_vars, per_scenario, tree_select
+from ..cones.base import local_vars, per_scenario, tree_map, tree_select
 from ..config import (KKT_SOLVER_LDLT, KKT_SOLVER_LLT, SCHUR_PRECISION_MODES,
                       WARMSTART, SolverConfig)
+from ..parallel.collectives import pany, pmax, pmin, psum
 from ..supernodal.compressed import (CompressedSupernodalStructure, empty_buffer,
                                      scatter_contribution)
+from ..supernodal.dist_compressed import DistributedCompressedStructure
 from . import kkt
 from .mu import SlackAgg, mu_from_divergence
 
@@ -100,7 +109,8 @@ def _scatter_vec(x, vars_, xi):
     x[:, slice(0, xi.shape[-1]) if vars_ is None else list(vars_)] += xi
 
 
-def assemble(blocks, eq_blocks, ws, n_kkt: int, m: int, dtype, structure=None):
+def assemble(blocks, eq_blocks, ws, n_kkt: int, m: int, dtype, structure=None,
+             group=None):
     """Assemble the (S, n_kkt, n_kkt) KKT matrices and residuals from the
     block contributions; n_kkt = m + the equality rows.
 
@@ -115,9 +125,18 @@ def assemble(blocks, eq_blocks, ws, n_kkt: int, m: int, dtype, structure=None):
     scatters straight into the per-clique blocks through a host-made index
     map — the compressed counterpart of SupernodalAssembler
     (supernodal_assembler.cc:72-141) — and no dense (N, N) matrix is built.
+    A DistributedCompressedStructure assembles into its ``base`` buffer.
+
+    With a process ``group`` (cone sharding) each rank adds its own blocks
+    and the equality rows, and one all-reduce of one flat buffer sums the
+    five outputs over the group (the JAX psum over ``axis_name``).  The
+    equality blocks are replicated, so their rows are counted once per rank,
+    as in the JAX package (conex_tpu/solver/loop.py:160-183).
     """
     outs = [blk.schur(w) for blk, w in zip(blocks, ws)]
     S, device = outs[0].G.shape[0], outs[0].G.device
+    if isinstance(structure, DistributedCompressedStructure):
+        structure = structure.base
     compressed = (structure if isinstance(structure, CompressedSupernodalStructure)
                   else None)
     if compressed is not None:
@@ -156,7 +175,7 @@ def assemble(blocks, eq_blocks, ws, n_kkt: int, m: int, dtype, structure=None):
         # The dump slot collects padding and mirrored-orientation writes;
         # nothing downstream may read what it accumulated.
         G[:, compressed.dump] = 0.0
-    return G, AW, AQc, w_dot_c, c_dot_Qc
+    return psum((G, AW, AQc, w_dot_c, c_dot_Qc), group)
 
 
 # ---------------------------------------------------------------------------
@@ -164,7 +183,7 @@ def assemble(blocks, eq_blocks, ws, n_kkt: int, m: int, dtype, structure=None):
 # ---------------------------------------------------------------------------
 
 
-def _prepare_step_all(blocks, ws, y, c_weight, e_weight):
+def _prepare_step_all(blocks, ws, y, c_weight, e_weight, group=None):
     """reference: PrepareStep sweep, cone_program.h:69-90."""
     caches = []
     norminf = torch.full_like(c_weight, -1.0)
@@ -175,7 +194,7 @@ def _prepare_step_all(blocks, ws, y, c_weight, e_weight):
         caches.append(cache)
         norminf = torch.maximum(norminf, ninf)
         normsq = normsq + nsq
-    return tuple(caches), norminf, normsq
+    return tuple(caches), pmax(norminf, group), psum((normsq,), group)[0]
 
 
 def _take_step_all(blocks, ws, caches, step_size):
@@ -186,7 +205,7 @@ def _take_step_all(blocks, ws, caches, step_size):
     )
 
 
-def _slack_stats_all(blocks, ws, y, c_weight):
+def _slack_stats_all(blocks, ws, y, c_weight, group=None):
     """reference: GetWeightedSlackEigenvalues agg, cone_program.cc:31-57.
 
     Initial lam bounds +/-30000 replicate the reference exactly
@@ -207,7 +226,9 @@ def _slack_stats_all(blocks, ws, y, c_weight):
             frob_sq=agg.frob_sq + s.frob_sq,
             trace=agg.trace + s.trace,
         )
-    return agg
+    frob_sq, trace = psum((agg.frob_sq, agg.trace), group)
+    return SlackAgg(lam_min=pmin(agg.lam_min, group),
+                    lam_max=pmax(agg.lam_max, group), frob_sq=frob_sq, trace=trace)
 
 
 def _identity_all(blocks, dtype):
@@ -215,15 +236,16 @@ def _identity_all(blocks, dtype):
 
 
 def _mu_line_search(blocks, ws, fac, config, AW, AQc_s, b_s_vec, c_scaling,
-                    structure=None):
+                    structure=None, group=None):
     """reference: ComputeMuFromLineSearch, cone_program.cc:118-160.  Per
     scenario: the largest admissible k of the segment from y0 to y1, or
     -1 where a block fails (a block without line search always does,
     reference constraint.h:24-28) or the intervals do not meet."""
     refine = config.iterative_refinement_iterations
     mode = config.kkt_solver
-    y0 = kkt.solve(fac, -2.0 * AW, mode, refine, structure)
-    y1 = kkt.solve(fac, AQc_s + b_s_vec - 2.0 * AW, mode, refine, structure)
+    y0 = kkt.solve(fac, -2.0 * AW, mode, refine, structure, group)
+    y1 = kkt.solve(fac, AQc_s + b_s_vec - 2.0 * AW, mode, refine, structure,
+                   group)
     lower = torch.full_like(c_scaling, -float("inf"))
     upper = torch.full_like(c_scaling, float("inf"))
     fail = torch.zeros(c_scaling.shape, dtype=torch.bool, device=c_scaling.device)
@@ -239,18 +261,19 @@ def _mu_line_search(blocks, ws, fac, config, AW, AQc_s, b_s_vec, c_scaling,
         lower = torch.maximum(lower, lo)
         upper = torch.minimum(upper, up)
         fail = fail | f
-    fail = fail | (lower > upper)
+    lower, upper = pmax(lower, group), pmin(upper, group)
+    fail = pany(fail, group) | (lower > upper)
     return torch.where(fail, torch.full_like(upper, -1.0), upper)
 
 
 def _mu_divergence(blocks, ws, fac, config, AQc_s, b_s_vec, c_scaling, rank_k,
-                   structure=None):
+                   structure=None, group=None):
     """reference: ComputeMuFromDivergence, cone_program.cc:173-214."""
     ydiv = kkt.solve(
         fac, AQc_s - b_s_vec, config.kkt_solver,
-        config.iterative_refinement_iterations, structure,
+        config.iterative_refinement_iterations, structure, group,
     )
-    p = _slack_stats_all(blocks, ws, ydiv, c_scaling)
+    p = _slack_stats_all(blocks, ws, ydiv, c_scaling, group)
     return mu_from_divergence(p, rank_k, config.divergence_upper_bound)
 
 
@@ -290,19 +313,26 @@ def _no_tf32():
 
 
 def _solve_impl(blocks, eq_blocks, b, init_ws, init_scalars,
-                config: SolverConfig, kkt_structure=None):
+                config: SolverConfig, kkt_structure=None, group=None,
+                rank_override=None):
     """Solve S same-structure programs: b (S, m), block tensors and
     init_ws fields (S, ...), init_scalars k / b_scaling / c_scaling (S,).
     ``kkt_structure``: an optional supernodal structure (supernodal/) that
-    every KKT assembly, factor and solve of the loop runs on."""
+    every KKT assembly, factor and solve of the loop runs on.
+
+    ``group``: set when the cone blocks are sharded over a process group
+    (parallel/sharded.py): each rank holds a shard of the blocks and every
+    cross-cone aggregation is an all-reduce over the group.
+    ``rank_override`` must then be the global rank sum of the blocks."""
     _check_supported(config)
     with _no_tf32() if b.is_cuda else contextlib.nullcontext():
         return _solve_loop(blocks, eq_blocks, b, init_ws, init_scalars, config,
-                           kkt_structure)
+                           kkt_structure, group, rank_override)
 
 
 def _solve_loop(blocks, eq_blocks, b, init_ws, init_scalars,
-                config: SolverConfig, kkt_structure=None):
+                config: SolverConfig, kkt_structure=None, group=None,
+                rank_override=None):
     dtype = b.dtype
     device = b.device
     S, m = b.shape
@@ -313,6 +343,8 @@ def _solve_loop(blocks, eq_blocks, b, init_ws, init_scalars,
     b_full[:, :m] = b
 
     rank_k = float(sum(blk.rank() for blk in blocks))
+    if rank_override is not None:
+        rank_k = float(rank_override)
     # The reference computes the KKT error only without quadratic costs
     # (cone_program.cc:463-468).
     has_qcost = any(getattr(blk, "is_cost", False) for blk in blocks)
@@ -354,7 +386,7 @@ def _solve_loop(blocks, eq_blocks, b, init_ws, init_scalars,
 
         # --- Assemble (cone_program.cc:338-341) ---
         G, AW, AQc, w_dot_c, c_dot_Qc = assemble(
-            blocks, eq_blocks, s.ws, n_kkt, m, dtype, kkt_structure
+            blocks, eq_blocks, s.ws, n_kkt, m, dtype, kkt_structure, group
         )
 
         # --- First-iteration rescaling (cone_program.cc:343-357) ---
@@ -379,7 +411,7 @@ def _solve_loop(blocks, eq_blocks, b, init_ws, init_scalars,
             b_scaling, c_scaling, k_max = s.b_scaling, s.c_scaling, s.k_max
 
         # --- Factor (cone_program.cc:359-371) ---
-        fac = kkt.factor(G, mode, kkt_structure, island_dtype=island)
+        fac = kkt.factor(G, mode, kkt_structure, group, island_dtype=island)
 
         # Both sides of the factor-fail branch are computed and merged with
         # per-scenario selects, as the JAX package does; values computed
@@ -393,13 +425,13 @@ def _solve_loop(blocks, eq_blocks, b, init_ws, init_scalars,
         if config.enable_line_search:
             temp = _mu_line_search(
                 blocks, s.ws, fac, config, AW, AQc_s, b_s_vec, c_scaling,
-                kkt_structure,
+                kkt_structure, group,
             )
             temp = torch.where(temp < 0, s.k, temp)
         else:
             temp = _mu_divergence(
                 blocks, s.ws, fac, config, AQc_s, b_s_vec, c_scaling, rank_k,
-                kkt_structure,
+                kkt_structure, group,
             )
         k_cand = torch.where(temp > 0, temp, s.k * 0.5)
 
@@ -433,13 +465,13 @@ def _solve_loop(blocks, eq_blocks, b, init_ws, init_scalars,
         # --- Newton solve (cone_program.cc:409-413) ---
         y = kkt.solve(
             fac, k[:, None] * (b_s_vec + AQc_s) - 2.0 * AW, mode, refine,
-            kkt_structure,
+            kkt_structure, group,
         )
 
         # --- PrepareStep (cone_program.cc:416-426) ---
         c_weight = k * c_scaling
         caches, norminf, normsq = _prepare_step_all(
-            blocks, s.ws, y, c_weight, 1.0
+            blocks, s.ws, y, c_weight, 1.0, group
         )
         step_size = torch.clamp(2.0 / (norminf * norminf), max=1.0)
 
@@ -598,6 +630,8 @@ def _solve_loop(blocks, eq_blocks, b, init_ws, init_scalars,
 
     # Every scenario that is not done has run exactly as many passes as
     # the loop has, so all of them stay below max_iterations inside it.
+    # Under a group, ``done`` comes from reduced and replicated values: the
+    # same on every rank, which all leave the loop at the same pass.
     for _ in range(T):
         if not config.fixed_iterations and bool(s.done.all()):
             break
@@ -621,10 +655,10 @@ def _solve_loop(blocks, eq_blocks, b, init_ws, init_scalars,
         # Dual recovery: one extra assemble/factor/solve + affine step
         # (cone_program.cc:500-516).  A failed run keeps the loop's W.
         G, AW, AQc, _, _ = assemble(blocks, eq_blocks, ws_final, n_kkt, m, dtype,
-                                    kkt_structure)
-        fac = kkt.factor(G, mode, kkt_structure, island_dtype=island)
+                                    kkt_structure, group)
+        fac = kkt.factor(G, mode, kkt_structure, group, island_dtype=island)
         bres = s.k[:, None] * b_full * s.b_scaling[:, None] - AW
-        y2 = kkt.solve(fac, bres, mode, refine, kkt_structure)
+        y2 = kkt.solve(fac, bres, mode, refine, kkt_structure, group)
         skip = s.fail | fac.fail
         ws_recovered = tuple(
             blk.affine_step(w, local_vars(y2, blk.vars_, blk.num_vars), 0.0)
@@ -677,23 +711,10 @@ def solve(blocks, eq_blocks, b, init_ws, init_scalars, config: SolverConfig):
 
 def _add_scenario(tree):
     """A leading scenario axis of one on every tensor of a block dataclass,
-    a state NamedTuple or a bare tensor; other fields stay as they are."""
-    if isinstance(tree, torch.Tensor):
-        return tree[None]
-    if isinstance(tree, tuple):
-        out = [_add_scenario(x) for x in tree]
-        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
-    if dataclasses.is_dataclass(tree):
-        return dataclasses.replace(tree, **{
-            f.name: _add_scenario(getattr(tree, f.name))
-            for f in dataclasses.fields(tree)
-            if isinstance(getattr(tree, f.name), torch.Tensor)
-        })
-    return tree
+    a state NamedTuple, a dict or a bare tensor; other fields stay as they
+    are."""
+    return tree_map(lambda x: x[None], tree)
 
 
 def _strip_scenario(tree):
-    if isinstance(tree, tuple):
-        out = [_strip_scenario(x) for x in tree]
-        return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
-    return tree[0]
+    return tree_map(lambda x: x[0], tree)

@@ -89,16 +89,17 @@ def test_f64_island_on_f32_system_matches_jax():
 
 def test_unported_modes_raise_naming_roadmap_item():
     """The LDLT and QR modes are ported (the tests below), and so are the
-    supernodal structures (tests/test_torch_supernodal.py); any other
-    structure, as the JAX package's distributed ones, raises item 14, and
-    an unknown mode or island type raises ValueError."""
+    supernodal structures, the distributed ones included
+    (tests/test_torch_supernodal.py, test_torch_distributed.py); an object
+    that is no known structure raises TypeError, and an unknown mode or
+    island type raises ValueError."""
     K = convert.tensor(np.eye(3)[None])
     for mode in (KKT_SOLVER_LDLT, KKT_SOLVER_QR):
         f = tkkt.factor(K, mode)
         assert not f.fail.any()
         x = tkkt.solve(f, convert.tensor(np.ones((1, 3))), mode)
         np.testing.assert_array_equal(x.numpy(), np.ones((1, 3)))
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(TypeError, match="unknown supernodal structure"):
         tkkt.factor(K, KKT_SOLVER_LLT, structure=object())
     with pytest.raises(ValueError, match="unknown kkt solver mode"):
         tkkt.factor(K, 7)

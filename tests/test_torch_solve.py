@@ -264,7 +264,9 @@ def test_unsupported_options_raise_naming_roadmap_items():
     args = ((convert.lmi_cone(A, C),), (), convert.tensor(b),
             (tstate(convert.tensor(_identity_ws(1, 1, 3))),),
             convert.scalars(_cold_scalars(1)))
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # Meshes are ported (tests/test_torch_parallel.py): a mesh must be a
+    # torch.distributed DeviceMesh.
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ct.solve_scenarios(*args, ct.SolverConfig(), mesh=object())
     # The line-search mu update is ported: on an LMI block, which has no
     # line search, it fails every mu update, as in the JAX package.
@@ -295,7 +297,7 @@ def test_solve_scenarios_takes_the_jax_axis_keyword():
     named = convert.to_numpy(ct.solve_scenarios(*args, cfg, axis="dp"))
     np.testing.assert_array_equal(named.y, plain.y)
     np.testing.assert_array_equal(named.stats_k, plain.stats_k)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ct.solve_scenarios(*args, cfg, mesh=object(), axis="dp")
 
 

@@ -528,5 +528,5 @@ def test_kkt_dispatch_and_refinement_on_the_compressed_buffer():
                 np.testing.assert_allclose(x[s], np.linalg.solve(Ms[s], bs[s]),
                                            atol=1e-9)
     Ms, _ = _batch(cliques, n, 6)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(TypeError, match="unknown supernodal structure"):
         tkkt.factor(_tensor(np.stack(Ms)), tkkt.KKT_SOLVER_LLT, structure=object())
