@@ -176,6 +176,27 @@ Phases, each printing its own lines; any failure exits non-zero:
    the CPU's), and tests/test_sedumi.py's all-cone-types problem through
    sedumi.solve_sedumi(device="cuda") (its own assertions, and y as on the
    CPU);
+5f. the C ABI, the MATLAB shim's sequence and the example on the card
+   (conex_tpu_torch/interfaces, examples/performance_plots.py): the
+   library built with cc (its build time and the libpython it links);
+   tests/test_c_abi.py's six programs through it by ctypes in this process
+   on the card (the LP with duals and iteration stats, box inequalities
+   under LDLT, the sparse LMI, the quadratic cost, the incremental QP and
+   LMI), each equal to the bit to the Python interface.Conex on the card
+   and within ABI_CPU_LIMIT of the same program on the CPU; bench.py's
+   scenario 0 at B = 1 in f64 (n = 100, m = 50) through
+   CONEX_AddDenseLMIConstraint: solved, K1 once per KKT assembly, its
+   100 x 100 dual read back through CONEX_GetDualVariable with <A_i, X> =
+   b_i, y within ABI_WIDTH_CPU_LIMIT of the CPU's or within what one
+   rounding of b moves the CPU alone; K1 at that shape against its plain
+   version, with times; the same program from abi_host, a separate C
+   process that starts with no interpreter, built dense and incrementally
+   (252,500 CONEX_UpdateLinearOperator calls): both solved, y equal to the
+   in-process y to ABI_HOST_LIMIT, its process and solve walls; the MATLAB
+   shim's call sequence (interfaces/matlab/conex_tpu_torch.m) through
+   ctypes at K.l = 100, K.s = [100], m = 50, y and the reassembled x held to
+   sedumi.solve_sedumi on the card; the example's main on the card: every
+   program solved, K1 on the mixed one only; the phase's time;
 6. the probe entry points: benchmarks/dev_pallas_probe.py's main at
    256,50,100 and dev_tpu_probe2.py's part2 through their twins in
    conex_tpu_torch/benchmarks, on the card in f32: each variant's kernel
@@ -186,7 +207,7 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 The last lines are the whole run's time, the kernels' JSON record (K2's
 and K3-K6's with their plans, K1's with its launches on phases 4, 4d, 4g,
-4h (every rank's) and 5e; with each kernel's bound:
+4h (every rank's), 5e and 5f (this process's); with each kernel's bound:
 the larger of its operations over the peak rate of the units that do
 them and its bytes over 3.35 TB/s; every Schur kernel's products run on
 the tensor cores, three TF32 passes per f32 product at 495 TFLOP/s), the
@@ -298,6 +319,34 @@ HERM_Y_LIMIT = 1e-9
 HERM_CPU_LIMIT = 1e-6
 HERM_EXACT_LIMIT = 1e-7
 HERM_OBJ_LIMIT = 1e-12
+# 5f: the C ABI (conex_tpu_torch/interfaces).  tests/test_c_abi.py's six
+# programs through the library on the card must give the Python Conex's
+# bits on the card (the same calls in the same process), and are held to
+# the same programs on the CPU as 5e holds Conex (HERM_CPU_LIMIT).  Then
+# bench.py's scenario 0 at B = 1 in f64 (ABI_WIDTH: m, n) through
+# CONEX_AddDenseLMIConstraint: its dual X read back through the ABI must
+# satisfy <A_i, X> = b_i to ABI_DUAL_LIMIT of max |b|, and its y lie within
+# ABI_WIDTH_CPU_LIMIT of the CPU's, or within what one rounding of b (up or
+# down) moves the CPU alone where that is more: on an H100 the card lay
+# 4.7e-8 from the CPU and one rounding moved the CPU 7.4e-8 (its endgame at
+# inv_sqrt_mu_max 1e3, 40 iterations).  abi_host, a separate C process, must give that y
+# to ABI_HOST_LIMIT (K1 gives the same bits twice).  The MATLAB shim's
+# sequence at MATLAB_SHAPE (m, K.l, K.s) is held to solve_sedumi on the
+# card as tests/test_matlab_twin.py holds it (absolute).
+ABI_CPU_LIMIT = HERM_CPU_LIMIT
+ABI_WIDTH = (50, 100)  # m, n: bench.py:73
+ABI_DUAL_LIMIT = 1e-6
+ABI_WIDTH_CPU_LIMIT = 1e-8
+ABI_HOST_LIMIT = 1e-12
+MATLAB_SHAPE = (50, 100, 100)  # m, K.l, K.s
+# interfaces/matlab/conex_tpu.m's options block (the constructor's
+# prepare_dual_variables included), set on CONEX_SetDefaultOptions's.
+MATLAB_OPTIONS = dict(prepare_dual_variables=1, inv_sqrt_mu_max=1000,
+                      infeasibility_threshold=1e3, max_iterations=25,
+                      divergence_upper_bound=1, final_centering_steps=5)
+MATLAB_LIMIT = 1e-8
+MATLAB_FEAS_LIMIT = 1e-6
+ABI_PHASE_BUDGET = 60.0  # seconds, the build included: printed beside the phase
 # 4g: benchmarks/bench_sparse.py's chain (N LMI cliques of order nc, each
 # over a 6-variable window, overlap 3; one instance, f32, 30 fixed
 # iterations), as (N, nc, structure) runs.  Depth N is the only cut
@@ -2161,6 +2210,471 @@ def sedumi_all_cone_types():
 
 
 # ---------------------------------------------------------------------------
+# 5f: the C ABI, the MATLAB shim's sequence and the example
+# ---------------------------------------------------------------------------
+
+
+def abi_programs():
+    """tests/test_c_abi.py's six programs, as {name: (m, ops, b, config)}:
+    ops is the build sequence (run by abi_run through the C ABI and by
+    conex_run through interface.Conex), b the cost of CONEX_Maximize (None:
+    CONEX_Solve with the accumulated cost), config the fields set on the
+    default options."""
+    import numpy as np
+
+    def sym_stack(rng, m, order):
+        return np.stack([0.5 * (M + M.T) for M in rng.uniform(-1, 1, (m, order, order))])
+
+    out = {}
+    rng = np.random.default_rng(5)
+    m, n = 4, 8
+    A = rng.uniform(-1, 1, (n, m))
+    b = A.T @ rng.uniform(0.5, 1.5, n)
+    out["lp"] = (m, [("linear", A, rng.uniform(0.5, 1.5, n))], b,
+                 dict(max_iterations=100, prepare_dual_variables=1))
+
+    rng = np.random.default_rng(7)
+    m, rows = 3, 4
+    A = rng.uniform(-1, 1, (rows, m))
+    lb, ub = np.array([-1.0, -2.0, 0.5, -1.5]), np.array([1.0, 2.0, 0.5, 1.5])
+    out["box_ldlt"] = (m, [("box", A, lb, ub)], rng.uniform(-0.2, 0.2, m),
+                       dict(max_iterations=100, kkt_solver=1))
+
+    rng = np.random.default_rng(8)
+    As = sym_stack(rng, 2, 3)
+    ops = [("sparse_lmi", As, np.eye(3), [1, 3]),
+           ("linear", np.vstack([np.eye(4), -np.eye(4)]), np.ones(8))]
+    out["sparse_lmi"] = (4, ops, rng.uniform(-0.3, 0.3, 4), dict(max_iterations=100))
+
+    rng = np.random.default_rng(9)
+    n = 4
+    M = rng.uniform(-1, 1, (n, n))
+    ops = [("qcost", M @ M.T + n * np.eye(n)),
+           ("linear", np.vstack([np.eye(n), -np.eye(n)]), np.full(2 * n, 10.0))]
+    out["quadratic_cost"] = (n, ops, rng.uniform(-0.1, 0.1, n), dict(
+        max_iterations=100, enable_line_search=1, enable_rescaling=0,
+        inv_sqrt_mu_max=2e5))
+
+    ops = [("new_qcost", [(1.0, i, i) for i in range(n)]),
+           ("new_linear", 1, [(1.0, i, 0, 0) for i in range(n)], [(1.0, 0, 0)])]
+    out["incremental_qp"] = (n, ops, None, dict(
+        max_iterations=100, enable_line_search=1, enable_rescaling=0))
+
+    rng = np.random.default_rng(6)
+    m, order = 3, 4
+    As = sym_stack(rng, m, order)
+    entries = [(As[v, i, j], v, i, j, 0) for v in range(m) for i in range(order)
+               for j in range(i + 1)]
+    ops = [("new_lmi", order, 1, entries, [(1.0, i, i, 0) for i in range(order)])]
+    out["incremental_lmi"] = (m, ops, np.einsum("vij,ij->v", As, 0.5 * np.eye(order)),
+                              dict(max_iterations=100))
+    return out
+
+
+def abi_defaults(lib):
+    """CONEX_SetDefaultOptions's fields, as SolverConfig keywords."""
+    import ctypes
+
+    from conex_tpu_torch import interfaces
+
+    cfg = interfaces.SolverConfiguration()
+    lib.CONEX_SetDefaultOptions(ctypes.byref(cfg))
+    return cfg.fields()
+
+
+def abi_run(lib, device, m, ops, b, config):
+    """Build and solve one program through the C ABI (lib: interfaces.
+    load()) on `device`, as a C caller does: matrices column-major, LMI
+    operators as m consecutive blocks.  Returns {solved, y, duals (every
+    constraint with a dual, where config prepares them), mu (the last
+    iteration's, CONEX_GetIterationStats), iterations}."""
+    import ctypes
+
+    import numpy as np
+
+    from conex_tpu_torch import interfaces
+
+    def ptr(a):
+        return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+
+    def check(status, what):
+        if status != 0:
+            raise RuntimeError(f"{what} failed ({status})")
+
+    keep = []  # every buffer the library read, alive until the solve
+
+    def buf(a):
+        keep.append(np.ascontiguousarray(a, np.float64))
+        return ptr(keep[-1])
+
+    prog = lib.CONEX_CreateConeProgramOnDevice(str(device).encode())
+    if not prog:
+        raise RuntimeError(f"CONEX_CreateConeProgramOnDevice({device!r}) failed")
+    try:
+        check(lib.CONEX_SetNumberOfVariables(prog, m), "CONEX_SetNumberOfVariables")
+        ids = []
+        for op in ops:
+            kind, args = op[0], op[1:]
+            if kind == "linear":
+                A, c = args
+                ids.append(lib.CONEX_AddDenseLinearConstraint(
+                    prog, buf(colmajor(A)), A.shape[0], A.shape[1], buf(c), len(c)))
+            elif kind == "box":
+                A, lb, ub = args
+                rows, cols = A.shape
+                if lib.CONEX_AddLinearInequalities(prog, buf(colmajor(A)), rows, cols,
+                                                   buf(lb), rows, buf(ub), rows) != -1:
+                    raise RuntimeError("CONEX_AddLinearInequalities failed")
+            elif kind in ("dense_lmi", "sparse_lmi"):
+                As, C = args[:2]
+                k, n = As.shape[:2]
+                if kind == "dense_lmi":
+                    ids.append(lib.CONEX_AddDenseLMIConstraint(
+                        prog, buf(colmajor(*As)), n, n, k, buf(colmajor(C)), n, n))
+                else:
+                    vars_ = np.asarray(args[2], np.int64)
+                    keep.append(vars_)
+                    ids.append(lib.CONEX_AddSparseLMIConstraint(
+                        prog, buf(colmajor(*As)), n, n, k, buf(colmajor(C)), n, n,
+                        vars_.ctypes.data_as(ctypes.POINTER(ctypes.c_long)), k))
+            elif kind == "qcost":
+                (Q,) = args
+                check(lib.CONEX_AddQuadraticCost(prog, buf(colmajor(Q)), *Q.shape),
+                      "CONEX_AddQuadraticCost")
+            elif kind == "new_qcost":
+                cid = ctypes.c_int(-1)
+                check(lib.CONEX_NewQuadraticCost(prog, ctypes.byref(cid)),
+                      "CONEX_NewQuadraticCost")
+                for value, row, col in args[0]:
+                    check(lib.CONEX_UpdateQuadraticCostMatrix(prog, cid.value, value, row, col),
+                          "CONEX_UpdateQuadraticCostMatrix")
+            else:  # "new_linear" (rows, operator, affine), "new_lmi" (order, d, ...)
+                cid = ctypes.c_int(-1)
+                if kind == "new_linear":
+                    check(lib.CONEX_NewLinearInequality(prog, args[0], ctypes.byref(cid)),
+                          "CONEX_NewLinearInequality")
+                    operator = [e + (0,) for e in args[1]]
+                    affine = [e + (0,) for e in args[2]]
+                else:
+                    check(lib.CONEX_NewLinearMatrixInequality(
+                        prog, args[0], args[1], ctypes.byref(cid)),
+                        "CONEX_NewLinearMatrixInequality")
+                    operator, affine = args[2], args[3]
+                for value, var, row, col, dim in operator:
+                    check(lib.CONEX_UpdateLinearOperator(prog, cid.value, value, var, row,
+                                                         col, dim), "CONEX_UpdateLinearOperator")
+                for value, row, col, dim in affine:
+                    check(lib.CONEX_UpdateAffineTerm(prog, cid.value, value, row, col, dim),
+                          "CONEX_UpdateAffineTerm")
+                ids.append(cid.value)
+        cfg = interfaces.SolverConfiguration()
+        lib.CONEX_SetDefaultOptions(ctypes.byref(cfg))
+        for name, value in config.items():
+            setattr(cfg, name, value)
+        y = np.zeros(m)
+        if b is None:
+            solved = lib.CONEX_Solve(prog, ctypes.byref(cfg), ptr(y), m)
+        else:
+            solved = lib.CONEX_Maximize(prog, buf(b), m, ctypes.byref(cfg), ptr(y), m)
+        duals = []
+        for cid in ids if cfg.prepare_dual_variables else ():
+            size = lib.CONEX_GetDualVariableSize(prog, cid)
+            if size < 0:
+                raise RuntimeError(f"CONEX_GetDualVariableSize({cid}) failed")
+            x = np.zeros(size)
+            lib.CONEX_GetDualVariable(prog, cid, ptr(x), size, 1)
+            duals.append(x)
+        stats = interfaces.IterationStats()
+        lib.CONEX_GetIterationStats(prog, ctypes.byref(stats), -1)
+        return dict(solved=solved, y=y, duals=duals, mu=stats.mu,
+                    iterations=stats.iteration_number + 1)
+    finally:
+        lib.CONEX_DeleteConeProgram(prog)
+
+
+def conex_run(conex, config_cls, defaults, m, ops, b, config):
+    """The same program through a Python Conex (conex(m) -> a Conex of
+    either package; config_cls its SolverConfig), with the configuration
+    the library builds: defaults (abi_defaults) updated by config.
+    Returns (Conex, Solution)."""
+    import numpy as np
+
+    prog = conex(m)
+    prog.SetNumberOfVariables(m)
+    for op in ops:
+        kind, args = op[0], op[1:]
+        if kind == "linear":
+            prog.AddLinearInequality(*args)
+        elif kind == "box":
+            prog.AddLinearInequalities(*args)
+        elif kind == "dense_lmi":
+            prog.AddDenseLMIConstraint(*args)
+        elif kind == "sparse_lmi":
+            prog.AddSparseLMIConstraint(args[0], args[1], list(args[2]))
+        elif kind == "qcost":
+            prog.AddQuadraticCost(*args)
+        elif kind == "new_qcost":
+            cid = prog.NewQuadraticCost()
+            for value, row, col in args[0]:
+                prog.UpdateQuadraticCostMatrix(cid, value, row, col)
+        else:
+            if kind == "new_linear":
+                cid = prog.NewLinearInequality(args[0])
+                operator = [e + (0,) for e in args[1]]
+                affine = [e + (0,) for e in args[2]]
+            else:
+                cid = prog.NewLinearMatrixInequality(args[0], args[1])
+                operator, affine = args[2], args[3]
+            for value, var, row, col, dim in operator:
+                prog.UpdateLinearOperator(cid, value, var, row, col, dim)
+            for value, row, col, dim in affine:
+                prog.UpdateAffineTerm(cid, value, row, col, dim)
+    cfg = config_cls(**{**defaults, **config})
+    sol = prog.Solve(cfg) if b is None else prog.Maximize(np.asarray(b, np.float64), cfg)
+    return prog, sol
+
+
+def colmajor(*mats):
+    """The matrices' entries column-major, one after the other (the ABI's
+    layout of a matrix and of an LMI operator's blocks)."""
+    import numpy as np
+
+    return np.concatenate([np.asarray(M, np.float64).ravel(order="F") for M in mats])
+
+
+def bench_lmi(m, n, seed=0):
+    """bench.py:77-83's scenario 0 at B = 1 in f64: (A (m, n, n), C = I, b
+    from X0)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    A = rng.uniform(-1, 1, (1, 1, m, n, n))
+    A = 0.5 * (A + np.swapaxes(A, 3, 4))
+    X0 = rng.uniform(-1, 1, (1, 1, n, n))
+    X0 = np.einsum("sbij,sbkj->sbik", X0, X0) + 0.1 * np.eye(n)
+    b = np.einsum("sbvij,sbij->sv", A, X0)
+    return A[0, 0], np.eye(n), b[0]
+
+
+def sedumi_lmi_instance(m, nl, ns, seed=0):
+    """tests/test_matlab_twin.py::_sedumi_instance at m variables, K.l = nl
+    and K.s = [ns] (the test's is (3, 4, 5)): (A, b, c, K)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    N = nl + ns * ns
+    A = np.zeros((m, N))
+    A[:, :nl] = rng.uniform(-1, 1, (m, nl))
+    for j in range(m):
+        M = rng.uniform(-1, 1, (ns, ns))
+        A[j, nl:] = (0.5 * (M + M.T)).ravel()
+    x0 = np.zeros(N)
+    x0[:nl] = rng.uniform(0.5, 1.5, nl)
+    X = rng.uniform(-1, 1, (ns, ns))
+    x0[nl:] = (X @ X.T / ns + 0.1 * np.eye(ns)).ravel()
+    cvec = np.zeros(N)
+    cvec[:nl] = rng.uniform(0.5, 1.5, nl)
+    C = rng.uniform(-0.1, 0.1, (ns, ns))
+    cvec[nl:] = (0.5 * (C + C.T) + np.eye(ns)).ravel()
+    return A, A @ x0, cvec, {"l": nl, "s": [ns]}
+
+
+def matlab_program(A, b, c, K):
+    """conex_tpu_torch.m's build sequence for a SeDuMi instance with K.l and
+    K.s blocks (its ConexTpuTorchProgram calls), as an abi_run program
+    (m, ops, b, config): the l block as CONEX_AddDenseLinearConstraint of
+    A(:, 1:K.l)', each s block as CONEX_AddDenseLMIConstraint of its
+    symmetrized operator matrices, and the .m files' options block."""
+    import numpy as np
+
+    m = A.shape[0]
+    ops, offset = [], 0
+    if K.get("l", 0):
+        nl = K["l"]
+        ops.append(("linear", np.ascontiguousarray(A[:, :nl].T), c[:nl].copy()))
+        offset = nl
+    for n in K.get("s", []):
+        cols = slice(offset, offset + n * n)
+        blocks = A[:, cols].reshape(m, n, n)
+        Cm = c[cols].reshape(n, n)
+        ops.append(("dense_lmi", 0.5 * (blocks + blocks.transpose(0, 2, 1)),
+                    0.5 * (Cm + Cm.T)))
+        offset += n * n
+    return m, ops, b, MATLAB_OPTIONS
+
+
+def phase_abi(device):
+    """5f: the C ABI, the MATLAB shim's sequence and the example on the
+    card; returns K1's launches on their card runs."""
+    import json
+    import os
+    import subprocess
+    import tempfile
+    from unittest import mock
+
+    import numpy as np
+
+    from conex_tpu_torch import SolverConfig, interfaces
+    from conex_tpu_torch.cones import psd_schur
+    from conex_tpu_torch.examples import performance_plots
+    from conex_tpu_torch.interface import Conex
+    from conex_tpu_torch.sedumi import solve_sedumi
+    from conex_tpu_torch.solver import kkt
+
+    def rel(got, want):
+        return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+    start = time.perf_counter()
+    dev = str(device)
+    library = interfaces.build()
+    host = interfaces.build_host()
+    lib = interfaces.load()
+    _, libpython, _ = interfaces.python_link()
+    log(f"[5f C ABI] cc: {library.name} and {host.name} in "
+        f"{time.perf_counter() - start:.2f} s, linked to {libpython}; stable copy "
+        f"{interfaces.STABLE_LIBRARY}")
+
+    k1 = 0
+    defaults = abi_defaults(lib)
+    for name, (m, ops, b, config) in abi_programs().items():
+        psd_schur.schur_kernel.launches = 0
+        card = abi_run(lib, dev, m, ops, b, config)
+        launches = psd_schur.schur_kernel.launches
+        k1 += launches
+        prog, sol = conex_run(lambda m: Conex(m, device=dev), SolverConfig, defaults,
+                              m, ops, b, config)
+        cpu = abi_run(lib, "cpu", m, ops, b, config)
+        duals = prog.GetDualVariables() if config.get("prepare_dual_variables") else []
+        same = (np.array_equal(card["y"], sol.y)
+                and card["mu"] == prog.GetIterationNumberStats(-1).mu
+                and len(card["duals"]) == len(duals)
+                and all(np.array_equal(x, np.ravel(p, order="F"))
+                        for x, p in zip(card["duals"], duals)))
+        e_cpu = rel(card["y"], cpu["y"])
+        log(f"[5f C ABI] {name}: solved {card['solved']} in {card['iterations']} "
+            f"iterations, K1 launches {launches}; y, duals and mu equal to the Python "
+            f"Conex on the card: {same}; y relative |card - CPU| {e_cpu:.3e} (limit "
+            f"{ABI_CPU_LIMIT})")
+        if not (card["solved"] == 1 == cpu["solved"] and sol.status and same
+                and e_cpu <= ABI_CPU_LIMIT):
+            fail(f"5f: the C ABI's {name} program on the card")
+
+    m, n = ABI_WIDTH
+    A, C, b = bench_lmi(m, n)
+    ops, config = [("dense_lmi", A, C)], dict(max_iterations=100, prepare_dual_variables=1)
+    psd_schur.schur_kernel.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(kkt, "factor", wraps=kkt.factor) as factor:
+        card = abi_run(lib, dev, m, ops, b, config)
+    wall = time.perf_counter() - t0
+    launches, passes = psd_schur.schur_kernel.launches, factor.call_count
+    k1 += launches
+    cpu, up, down = (abi_run(lib, "cpu", m, ops, bb, config)
+                     for bb in (b, np.nextafter(b, np.inf), np.nextafter(b, -np.inf)))
+    X = card["duals"][0].reshape(n, n, order="F")
+    e_dual = float(np.abs(np.einsum("vij,ij->v", A, X) - b).max() / np.abs(b).max())
+    e_cpu = rel(card["y"], cpu["y"])
+    e_moved = max(rel(up["y"], cpu["y"]), rel(down["y"], cpu["y"]))
+    limit = max(ABI_WIDTH_CPU_LIMIT, e_moved)
+    log(f"[5f C ABI] bench.py's scenario 0 (n={n}, m={m}, f64) through "
+        f"CONEX_AddDenseLMIConstraint: solved {card['solved']} in {card['iterations']} "
+        f"iterations, {wall:.3f} s; K1 launches {launches} in {passes} KKT factors; "
+        f"max |<A_i, X> - b_i| / max |b| {e_dual:.3e} (limit {ABI_DUAL_LIMIT}); y "
+        f"relative |card - CPU| {e_cpu:.3e}; the CPU alone under one rounding of b "
+        f"either way: {e_moved:.3e} (limit the larger, {limit:.3e}, and "
+        f"{ABI_WIDTH_CPU_LIMIT})")
+    if not (card["solved"] == 1 == cpu["solved"] and launches == passes
+            and launches >= card["iterations"] and e_dual <= ABI_DUAL_LIMIT
+            and e_cpu <= limit):
+        fail("5f: the full-width LMI through the C ABI")
+
+    # K1 at this program's shape (S = 1, Bc = 1, m = 50, n = 100), f64.
+    A1, W1, C1 = schur_inputs(1, 1, m, n, seed=3, device=device)
+    err = rel_err(psd_schur.schur_kernel(A1, W1, C1), psd_schur.schur_plain(A1, W1, C1))
+    ms = {"plain": [], "kernel": []}
+    fns = {"plain": lambda: psd_schur.schur_plain(A1, W1, C1),
+           "kernel": lambda: psd_schur.schur_kernel(A1, W1, C1)}
+    for name in ("plain", "kernel", "kernel", "plain"):
+        ms[name].append(time_ms(fns[name], 100))
+    log(f"[5f C ABI] K1 at the program's shape (1, 1, {m}, {n}), f64: rel err vs plain "
+        f"{err:.3e} (limit 1e-12); ms per call: kernel {ms['kernel']}, plain "
+        f"{ms['plain']} (CUDA events, 100 calls each); bound "
+        f"{schur_bound(1, 1, m, n, itemsize=8, tensor_cores=True)}")
+    if not err <= 1e-12:
+        fail("5f: K1 disagrees with its plain version at the program's shape")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "program.bin")
+        np.concatenate([[m, n], colmajor(*A), colmajor(C), b]).tofile(path)
+        for build in ("dense", "incremental"):
+            t0 = time.perf_counter()
+            proc = subprocess.run([str(host), path, build, dev], capture_output=True,
+                                  text=True, env=interfaces.host_environment(), timeout=600)
+            wall = time.perf_counter() - t0
+            if proc.returncode != 0:
+                fail(f"5f: abi_host ({build}) exited {proc.returncode}:\n"
+                     f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+            out = json.loads(proc.stdout.strip().splitlines()[-1])
+            e_host = rel(np.asarray(out["y"]), card["y"])
+            log(f"[5f C ABI] abi_host ({build}, a C process with no interpreter at its "
+                f"start): solved {out['solved']}, process {wall:.3f} s, of it create "
+                f"{out['create_s']:.3f} s (interpreter, imports), build "
+                f"{out['build_s']:.3f} s, solve {out['solve_s']:.3f} s; y relative to "
+                f"the in-process y {e_host:.3e} (limit {ABI_HOST_LIMIT})")
+            if not (out["solved"] == 1 and e_host <= ABI_HOST_LIMIT):
+                fail(f"5f: abi_host ({build}) does not give the in-process y")
+
+    A, b, c, K = sedumi_lmi_instance(*MATLAB_SHAPE)
+    psd_schur.schur_kernel.launches = 0
+    card = abi_run(lib, dev, *matlab_program(A, b, c, K))
+    launches = psd_schur.schur_kernel.launches
+    k1 += launches
+    x = np.concatenate(card["duals"])
+    x_ref, y_ref, info = solve_sedumi(A, b, c, K, device=dev)
+    e_y = float(np.abs(card["y"] - y_ref).max())
+    e_x = float(np.abs(x - x_ref).max())
+    e_feas = float(np.abs(A @ x - b).max())
+    log(f"[5f MATLAB] conex_tpu_torch.m's sequence at m={A.shape[0]}, K.l={K['l']}, "
+        f"K.s={K['s']}: solved {card['solved']} in {card['iterations']} iterations, K1 "
+        f"launches {launches}; against solve_sedumi on the card ({info['solved']}): "
+        f"max |y - y_ref| {e_y:.3e}, max |x - x_ref| {e_x:.3e} (limit {MATLAB_LIMIT}); "
+        f"max |A x - b| {e_feas:.3e} (limit {MATLAB_FEAS_LIMIT})")
+    if not (card["solved"] == 1 and info["solved"] and e_y <= MATLAB_LIMIT
+            and e_x <= MATLAB_LIMIT and e_feas <= MATLAB_FEAS_LIMIT):
+        fail("5f: the MATLAB shim's sequence at width")
+
+    walls = []
+
+    def counted(fn):
+        def run(*args, **kwargs):
+            psd_schur.schur_kernel.launches = 0
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            walls.append((time.perf_counter() - t0, psd_schur.schur_kernel.launches))
+            return out
+        return run
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with mock.patch.object(performance_plots, "mu_trajectory_hermitian",
+                               counted(performance_plots.mu_trajectory_hermitian)), \
+                mock.patch.object(performance_plots, "mu_trajectory_mixed",
+                                  counted(performance_plots.mu_trajectory_mixed)):
+            runs = performance_plots.main([tmp, "--device", dev])
+        csvs = sorted(f for f in os.listdir(tmp) if f.endswith(".csv"))
+    for (name, (mus, res)), (wall, launches) in zip(runs.items(), walls):
+        k1 += launches
+        log(f"[5f example] {name}: {res.num_iterations} iterations, final mu "
+            f"{mus[-1]:.3e}, solved {res.solved}, {wall:.3f} s, K1 launches {launches}")
+        if not res.solved or (launches > 0) != (name == "mixed"):
+            fail(f"5f: the example's {name} program (solved, K1 on the mixed one only)")
+    if not len(csvs) == len(runs) == 5:
+        fail(f"5f: the example wrote {csvs}")
+    log(f"[5f C ABI] phase {time.perf_counter() - start:.1f} s, the build included "
+        f"(budget {ABI_PHASE_BUDGET:.0f} s)")
+    return k1
+
+
+# ---------------------------------------------------------------------------
 # The Schur-phase probes (kernels K3-K6)
 # ---------------------------------------------------------------------------
 
@@ -3188,6 +3702,7 @@ def main():
     phase_lp_known_answer(device)
     phase_eq_known_answers(device)
     schur["path_launches"]["5e"] = phase_front_ends(device)
+    schur["path_launches"]["5f"] = phase_abi(device)
     for name, n in phase_probe_entry_points().items():
         probes[name]["launches"] = n
 

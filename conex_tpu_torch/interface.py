@@ -10,9 +10,9 @@ Maximize/Solve, dual readback, per-iteration statistics, and a KKT error
 checker.  A ``Conex`` builds a ``Program`` on its ``device``: the card
 unless the caller asks for the CPU.  A d = 1 LMI goes to
 ``add_lmi_constraint`` (and so through the Schur kernel on the card), d > 1
-to ``add_hermitian_constraint``.  Sparse LMIs (variables other than the
-first v) need the supernodal KKT path, not ported yet: building them
-raises.
+to ``add_hermitian_constraint``.  A sparse LMI (variables other than the
+first v) makes the Program sparse: it is solved on the supernodal KKT path
+(``supernodal/``), as in ``conex_tpu``.
 """
 
 from __future__ import annotations
