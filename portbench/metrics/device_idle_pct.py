@@ -1,0 +1,8 @@
+"""Share of the traced call's wall in which no kernel, copy or set ran on
+the device (the union of the trace's device intervals)."""
+
+
+def read(ctx):
+    if ctx.trace is None or ctx.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - ctx.trace.busy_s / ctx.trace.window_s)
