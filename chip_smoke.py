@@ -635,8 +635,7 @@ def phase_main_path(device):
     import torch
 
     from conex_tpu_torch import solve_scenarios
-    from conex_tpu_torch.cones import psd_schur
-    from conex_tpu_torch.parallel import fused_socp
+    from conex_tpu_torch.utils.profiling import counters
 
     t0 = time.perf_counter()
     blk, b, init_ws, scalars, config = bench_workload(device)
@@ -647,12 +646,12 @@ def phase_main_path(device):
         torch.cuda.synchronize()
         return res
 
-    psd_schur.schur_kernel.launches = 0
-    fused_socp.solve_socp_kernel.launches = 0
+    counters["schur.calls"] = 0
+    counters["socp.calls"] = 0
     t0 = time.perf_counter()
     res = run(b)
-    launches = psd_schur.schur_kernel.launches
-    if fused_socp.solve_socp_kernel.launches:
+    launches = counters["schur.calls"]
+    if counters["socp.calls"]:
         fail("the fused SOCP kernel ran on the SDP path")
     log(f"[4 main path] first run {time.perf_counter() - t0:.3f} s, "
         f"Schur kernel launches {launches}")
@@ -1049,25 +1048,24 @@ def phase_socp_main_path(device):
     import torch
 
     from conex_tpu_torch import solve_scenarios
-    from conex_tpu_torch.cones import psd_schur
     from conex_tpu_torch.cones.soc import SOCCone
     from conex_tpu_torch.parallel import fused_socp
     from conex_tpu_torch.parallel.fused_socp import solve_socp_fused
+    from conex_tpu_torch.utils.profiling import counters
 
     config = socp_config()
     iters = config.max_iterations
-    kernel = fused_socp.solve_socp_kernel
-    psd_schur.schur_kernel.launches = 0
-    kernel.launches = 0
+    counters["schur.calls"] = 0
+    counters["socp.calls"] = 0
     for S in SOCP_SIZES:
         A, c, b = (torch.from_numpy(x).to(device) for x in socp_workload(S))
 
         def run(bv):
-            before = kernel.launches
+            before = counters["socp.calls"]
             out = solve_socp_fused(A, c, bv, config)
             torch.cuda.synchronize()
-            if kernel.launches != before + 1:
-                fail(f"S={S}: {kernel.launches - before} kernel launches in one call")
+            if counters["socp.calls"] != before + 1:
+                fail(f"S={S}: {counters['socp.calls'] - before} kernel launches in one call")
             return out
 
         out = run(b)
@@ -1091,10 +1089,10 @@ def phase_socp_main_path(device):
             f"(best of 3: {best * 1e3:.3f} ms)")
         if S == 10_000:
             general_inputs = (A, c, b, out)
-    launches = kernel.launches
+    launches = counters["socp.calls"]
     log(f"[4b socp main path] fused kernel launches {launches}, Schur kernel "
-        f"launches {psd_schur.schur_kernel.launches}")
-    if psd_schur.schur_kernel.launches:
+        f"launches {counters['schur.calls']}")
+    if counters["schur.calls"]:
         fail("the Schur kernel ran on the SOCP path")
 
     # The general path at S = 10,000: the solve loop with SOCCone blocks.
@@ -1127,7 +1125,7 @@ def phase_socp_main_path(device):
         f"{float(rel.max()):.3e} (limit on the median 1e-3)")
     if not torch.isfinite(res.k).all() or not med <= 1e-3:
         fail("the general SOCP path disagrees with the fused path")
-    if kernel.launches != launches:
+    if counters["socp.calls"] != launches:
         fail("the general SOCP path launched the fused kernel")
     return launches
 
@@ -1336,12 +1334,11 @@ def phase_lp_path(device):
     import torch
 
     from conex_tpu_torch import Program, convert, solve_scenarios
-    from conex_tpu_torch.cones import psd_schur
-    from conex_tpu_torch.parallel import fused_socp
+    from conex_tpu_torch.utils.profiling import counters
 
-    kernels = (psd_schur.schur_kernel, fused_socp.solve_socp_kernel)
+    kernels = ("schur.calls", "socp.calls")
     for kernel in kernels:
-        kernel.launches = 0
+        counters[kernel] = 0
     m, n = LP_SHAPE
     A, b, c = lp_instance(0)
     for line_search in (False, True):
@@ -1440,7 +1437,7 @@ def phase_lp_path(device):
             broken[mode] = bad
     if broken:
         fail(f"LP batch: scenarios break the limits on the card: {broken}")
-    if any(kernel.launches for kernel in kernels):
+    if any(counters[kernel] for kernel in kernels):
         fail("K1 or K2 launched on the LP path")
 
 
@@ -1593,9 +1590,8 @@ def phase_eq_sdp(device):
     import torch
 
     from conex_tpu_torch import solve_scenarios
-    from conex_tpu_torch.cones import psd_schur
-    from conex_tpu_torch.parallel import fused_socp
     from conex_tpu_torch.solver import kkt
+    from conex_tpu_torch.utils.profiling import counters
 
     S, n, m, p = EQ_SDP_SHAPE
     config = eq_sdp_config()
@@ -1603,8 +1599,8 @@ def phase_eq_sdp(device):
     args, (As, C, Aeq, beq, b) = eq_sdp_batch(range(S), n, m, p, device)
     log(f"[4d eq sdp] {S} programs (n={n}, m={m}, p={p}, f64) built in "
         f"{time.perf_counter() - t0:.2f} s; n_kkt = {m + p}")
-    psd_schur.schur_kernel.launches = 0
-    fused_socp.solve_socp_kernel.launches = 0
+    counters["schur.calls"] = 0
+    counters["socp.calls"] = 0
     t0 = time.perf_counter()
     # One KKT factor per loop pass: the passes the loop ran.
     with mock.patch.object(kkt, "factor", wraps=kkt.factor) as factor:
@@ -1612,12 +1608,12 @@ def phase_eq_sdp(device):
         torch.cuda.synchronize()
     passes = factor.call_count
     first = time.perf_counter() - t0
-    launches = psd_schur.schur_kernel.launches
+    launches = counters["schur.calls"]
     iters = res.num_iterations.cpu().numpy()
     log(f"[4d eq sdp] first solve {first:.3f} s: iterations {iters.min()}-{iters.max()} "
         f"(median {np.median(iters):.0f}), loop passes {passes}, K1 launches "
-        f"{launches}, K2 launches {fused_socp.solve_socp_kernel.launches}")
-    if fused_socp.solve_socp_kernel.launches:
+        f"{launches}, K2 launches {counters['socp.calls']}")
+    if counters["socp.calls"]:
         fail("the fused SOCP kernel ran on the equality SDP path")
     if not (launches == passes and iters.max() <= launches <= iters.max() + 1):
         fail(f"K1 launched {launches} times in {passes} loop passes "
@@ -1701,12 +1697,11 @@ def phase_qp(device):
     import torch
 
     from conex_tpu_torch import SolverConfig, convert, solve_scenarios
-    from conex_tpu_torch.cones import psd_schur
-    from conex_tpu_torch.parallel import fused_socp
+    from conex_tpu_torch.utils.profiling import counters
 
-    kernels = (psd_schur.schur_kernel, fused_socp.solve_socp_kernel)
+    kernels = ("schur.calls", "socp.calls")
     for kernel in kernels:
-        kernel.launches = 0
+        counters[kernel] = 0
     n, ni = QP_SHAPE
     config = qp_config()
     W, A, b, c, x_opt, slack_opt = qp_with_solution(n, ni, np.random.default_rng(0))
@@ -1787,7 +1782,7 @@ def phase_qp(device):
         f"{wall * 1e3:.3f} ms (best of 3), Newton it/s {res.num_iterations / wall:.2f}")
     if not (res.solved and e_y <= QP_EPIGRAPH_LIMIT):
         fail("4e: the epigraph QP breaks its limit on the card")
-    if any(kernel.launches for kernel in kernels):
+    if any(counters[kernel] for kernel in kernels):
         fail("K1 or K2 launched on the QP path")
 
 
@@ -1990,8 +1985,7 @@ def phase_herm(device):
     import numpy as np
 
     from conex_tpu_torch import convert, solve_scenarios
-    from conex_tpu_torch.cones import psd_schur
-    from conex_tpu_torch.parallel import fused_socp
+    from conex_tpu_torch.utils.profiling import counters
 
     start = time.perf_counter()
     S, d, n, m = HERM_SHAPE
@@ -2000,10 +1994,10 @@ def phase_herm(device):
     args = herm_args(*herm_workload(S, d, n, m), device)
     log(f"[4f hermitian] S={S} Hermitian LMIs over d={d} (n={n}, m={m}, f32) built in "
         f"{time.perf_counter() - t0:.2f} s")
-    psd_schur.schur_kernel.launches = 0
-    fused_socp.solve_socp_kernel.launches = 0
+    counters["schur.calls"] = 0
+    counters["socp.calls"] = 0
     warm, total = herm_batch("warm (HermState seeds)", args, config)
-    if psd_schur.schur_kernel.launches or fused_socp.solve_socp_kernel.launches:
+    if counters["schur.calls"] or counters["socp.calls"]:
         fail("4f: K1 or K2 launched on the Hermitian path")
     cold, _ = herm_batch("cold (FORCE_COLD)", args, config, cold=True)
     log(f"[4f hermitian] warm over cold: {cold / warm:.3f}x")
@@ -2099,17 +2093,17 @@ def phase_front_ends(device):
     import numpy as np
 
     from conex_tpu_torch import SolverConfig
-    from conex_tpu_torch.cones import psd_schur
     from conex_tpu_torch.sedumi import solve_sedumi
     from conex_tpu_torch.solver import kkt
+    from conex_tpu_torch.utils.profiling import counters
 
     start = time.perf_counter()
     k1 = 0
     for d in (1, 2, 4, 8):
-        psd_schur.schur_kernel.launches = 0
+        counters["schur.calls"] = 0
         with mock.patch.object(kkt, "factor", wraps=kkt.factor) as factor:
             prog, sol = tridiagonal_lmi(d, device)
-        launches, passes = psd_schur.schur_kernel.launches, factor.call_count
+        launches, passes = counters["schur.calls"], factor.call_count
         _, cpu = tridiagonal_lmi(d, "cpu")
         e_ans = float(np.linalg.norm(sol.y + 1.0))
         e_cpu = float(np.abs(sol.y - cpu.y).max())
@@ -2520,6 +2514,7 @@ def phase_abi(device):
     from conex_tpu_torch.interface import Conex
     from conex_tpu_torch.sedumi import solve_sedumi
     from conex_tpu_torch.solver import kkt
+    from conex_tpu_torch.utils.profiling import counters
 
     def rel(got, want):
         return float(np.linalg.norm(got - want) / np.linalg.norm(want))
@@ -2537,9 +2532,9 @@ def phase_abi(device):
     k1 = 0
     defaults = abi_defaults(lib)
     for name, (m, ops, b, config) in abi_programs().items():
-        psd_schur.schur_kernel.launches = 0
+        counters["schur.calls"] = 0
         card = abi_run(lib, dev, m, ops, b, config)
-        launches = psd_schur.schur_kernel.launches
+        launches = counters["schur.calls"]
         k1 += launches
         prog, sol = conex_run(lambda m: Conex(m, device=dev), SolverConfig, defaults,
                               m, ops, b, config)
@@ -2562,12 +2557,12 @@ def phase_abi(device):
     m, n = ABI_WIDTH
     A, C, b = bench_lmi(m, n)
     ops, config = [("dense_lmi", A, C)], dict(max_iterations=100, prepare_dual_variables=1)
-    psd_schur.schur_kernel.launches = 0
+    counters["schur.calls"] = 0
     t0 = time.perf_counter()
     with mock.patch.object(kkt, "factor", wraps=kkt.factor) as factor:
         card = abi_run(lib, dev, m, ops, b, config)
     wall = time.perf_counter() - t0
-    launches, passes = psd_schur.schur_kernel.launches, factor.call_count
+    launches, passes = counters["schur.calls"], factor.call_count
     k1 += launches
     cpu, up, down = (abi_run(lib, "cpu", m, ops, bb, config)
                      for bb in (b, np.nextafter(b, np.inf), np.nextafter(b, -np.inf)))
@@ -2625,9 +2620,9 @@ def phase_abi(device):
                 fail(f"5f: abi_host ({build}) does not give the in-process y")
 
     A, b, c, K = sedumi_lmi_instance(*MATLAB_SHAPE)
-    psd_schur.schur_kernel.launches = 0
+    counters["schur.calls"] = 0
     card = abi_run(lib, dev, *matlab_program(A, b, c, K))
-    launches = psd_schur.schur_kernel.launches
+    launches = counters["schur.calls"]
     k1 += launches
     x = np.concatenate(card["duals"])
     x_ref, y_ref, info = solve_sedumi(A, b, c, K, device=dev)
@@ -2647,10 +2642,10 @@ def phase_abi(device):
 
     def counted(fn):
         def run(*args, **kwargs):
-            psd_schur.schur_kernel.launches = 0
+            counters["schur.calls"] = 0
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
-            walls.append((time.perf_counter() - t0, psd_schur.schur_kernel.launches))
+            walls.append((time.perf_counter() - t0, counters["schur.calls"]))
             return out
         return run
 
@@ -3102,10 +3097,10 @@ def phase_sparse(device):
     import torch
 
     from conex_tpu_torch.cones import psd_schur
-    from conex_tpu_torch.parallel import fused_socp
     from conex_tpu_torch.solver import kkt
     from conex_tpu_torch.solver.loop import assemble
     from conex_tpu_torch import native
+    from conex_tpu_torch.utils.profiling import counters
 
     start = time.perf_counter()
     phase_sparse_known_answers(device)
@@ -3127,19 +3122,19 @@ def phase_sparse(device):
                 fail(f"4g: {label} picked {type(kkt_structure).__name__}")
             build_s = time.perf_counter() - t0
             wall_short = best_wall(lambda: prog.solve(b, short), reps=1)
-            psd_schur.schur_kernel.launches = 0
-            fused_socp.solve_socp_kernel.launches = 0
+            counters["schur.calls"] = 0
+            counters["socp.calls"] = 0
             t0 = time.perf_counter()
             res = prog.solve(b, config)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            k1 = psd_schur.schur_kernel.launches
+            k1 = counters["schur.calls"]
             k1_total += k1
             if (res.num_iterations != SPARSE_ITERATIONS or bool(res._raw.fail)
-                    or fused_socp.solve_socp_kernel.launches):
+                    or counters["socp.calls"]):
                 fail(f"4g: {label}: {res.num_iterations} iterations, fail "
                      f"{bool(res._raw.fail)}, K2 launches "
-                     f"{fused_socp.solve_socp_kernel.launches}")
+                     f"{counters['socp.calls']}")
             if k1 != N * SPARSE_ITERATIONS:
                 fail(f"4g: {label}: K1 launched {k1} times, not once per clique per "
                      f"iteration ({N * SPARSE_ITERATIONS})")
@@ -3326,13 +3321,13 @@ def sharded_record(label, run, config, reps):
     K1's count set to 0, time ``reps`` more runs (none: the first run's
     wall), and profile a solve of SHARDED_PROFILE_ITERATIONS iterations;
     the record of this rank, its profile per iteration."""
-    from conex_tpu_torch.cones import psd_schur
+    from conex_tpu_torch.utils.profiling import counters
 
-    psd_schur.schur_kernel.launches = 0
+    counters["schur.calls"] = 0
     t0 = time.perf_counter()
     res = run(config)
     first = time.perf_counter() - t0
-    k1 = psd_schur.schur_kernel.launches
+    k1 = counters["schur.calls"]
     wall = best_wall(lambda: run(config), reps) if reps else first
     its = SHARDED_PROFILE_ITERATIONS
     launches, device_ms, spans, span_ms, nccl_ms = collective_profile(
@@ -3608,13 +3603,14 @@ def phase_probe_entry_points():
     """The two probe harnesses on the card; returns each variant's kernel
     launches in this phase."""
     from conex_tpu_torch.benchmarks import dev_pallas_probe, dev_tpu_probe2
-    from conex_tpu_torch.cones import psd_schur
-    from conex_tpu_torch.parallel import fused_socp
+    from conex_tpu_torch.utils.profiling import counters
 
     kernels = {name: kernel for name, (_, kernel) in probe_variants().items()}
-    others = (psd_schur.schur_kernel, fused_socp.solve_socp_kernel)
-    for kernel in (*kernels.values(), *others):
+    others = ("schur.calls", "socp.calls")
+    for kernel in kernels.values():
         kernel.launches = 0
+    for key in others:
+        counters[key] = 0
     t0 = time.perf_counter()
     dev_pallas_probe.main([",".join(map(str, PROBE_SHAPE))])
     dev_tpu_probe2.part2()
@@ -3623,7 +3619,7 @@ def phase_probe_entry_points():
         f"launches {launches}")
     if not all(launches.values()):
         fail(f"a probe variant did not launch its kernel: {launches}")
-    if any(kernel.launches for kernel in others):
+    if any(counters[key] for key in others):
         fail("the probes launched K1 or K2")
 
     # K4 reads A in place: a call holds its plan's scratch and outputs, and

@@ -26,6 +26,7 @@ import torch
 
 from ..algebra import hypercomplex as hc
 from ..algebra import sym
+from ..utils.profiling import counters
 from .base import SchurOut, SlackStats, per_scenario, tree_select
 
 # Benchmark switch: force the cold squaring estimator on every iteration,
@@ -158,6 +159,7 @@ class HermitianCone:
         if FORCE_COLD:
             return sym.extreme_eigenvalues_seeded(R)
         is_cold = torch.amax(torch.abs(state.lam), dim=(1, 2)) == 0.0  # (S,)
+        counters["sync.cone.cold"] += 1
         n_cold = int(is_cold.sum())
         cold = sym.extreme_eigenvalues_seeded(R) if n_cold else None
         if n_cold == is_cold.shape[0]:

@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..algebra import sym
+from ..utils.profiling import counters
 from .base import SchurOut, SlackStats, per_scenario, tree_select
 from .psd_schur import schur_fused
 
@@ -105,9 +106,10 @@ class DenseLMICone:
         iteration with a ``lax.cond`` on ``max|lam| == 0``; under vmap that
         choice is made per scenario.  Here it is a per-scenario select, and
         the cold estimator runs only when some scenario is cold (one host
-        sync to find out).
+        sync to find out, counted as ``sync.cone.cold``).
         """
         is_cold = torch.amax(torch.abs(state.lam), dim=(1, 2)) == 0.0  # (S,)
+        counters["sync.cone.cold"] += 1
         n_cold = int(is_cold.sum())
         cold = sym.extreme_eigenvalues_seeded(WS) if n_cold else None
         if n_cold == is_cold.shape[0]:

@@ -12,12 +12,12 @@ from A (S, Bc, m, n, n), W and C (S, Bc, n, n).
 kernel in ``csrc/schur.cu`` (float32 or float64), or the call raises; a CPU
 tensor goes to ``schur_plain``, the einsum formulation of
 ``conex_tpu/cones/psd.py:182-209`` with an explicit scenario axis.
-``schur_kernel.launches`` counts the kernel's calls: one per call, whatever
-number of CUDA launches the call makes (``SchurPlan.launches``).  The
-probes K3 and K6 (benchmarks/dev_pallas_probe.py, dev_tpu_probe2.py)
-compute this function for one program of cones and run the same kernels
-through ``launch_schur``, which counts nothing: their wrappers keep their
-own counts.
+``utils.profiling.counters["schur.calls"]`` counts the kernel's calls:
+one per call, whatever number of CUDA launches the call makes (the
+``launches`` of its ``SchurPlan``).  The probes K3 and K6 (benchmarks/
+dev_pallas_probe.py, dev_tpu_probe2.py) compute this function for one
+program of cones and run the same kernels through ``launch_schur``,
+which counts nothing: their wrappers keep their own counts.
 """
 
 from __future__ import annotations
@@ -25,6 +25,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+
+from ..utils.profiling import counters
 
 
 def schur_plain(A, W, C):
@@ -215,7 +217,8 @@ def launch_schur(A, W, C, plan):
     and C (S, Bc, n, n), contiguous CUDA tensors of one type (float32 or
     float64) that the caller has checked; returns (G, AW, AQc, w_dot_c,
     c_dot_Qc) of shapes (S, m, m), (S, m), (S, m), (S,), (S,).  Counts no
-    launch: ``schur_kernel`` and the probes K3/K6 keep their own counts."""
+    call: ``schur_kernel`` counts its own in ``schur.calls``, the probes
+    K3/K6 theirs."""
     from .._build import build
 
     S, Bc, m, n, _ = A.shape
@@ -271,11 +274,8 @@ def schur_kernel(A, W, C):
     plan = schur_plan(S, Bc, m, n, A.element_size(), sms)
     plan.check()
     out = launch_schur(A, W, C, plan)
-    schur_kernel.launches += 1
+    counters["schur.calls"] += 1
     return out
-
-
-schur_kernel.launches = 0
 
 
 def schur_fused(A, W, C):

@@ -22,6 +22,7 @@ from .cones.psd import DenseLMICone, PSDState
 from .cones.qcost import QuadraticCost
 from .cones.quadratic import QuadraticCone
 from .cones.soc import SOCCone
+from .utils.profiling import counters
 
 
 def tensor(x, device=None) -> torch.Tensor:
@@ -88,12 +89,16 @@ def scalars(init_scalars, device=None) -> dict:
     return {key: tensor(x, device) for key, x in init_scalars.items()}
 
 
-def to_numpy(tree):
+def to_numpy(tree, site=None):
     """Every tensor in a (nested) tuple or NamedTuple, such as a port
-    SolveResult, as a numpy array."""
+    SolveResult, as a numpy array.  With ``site``, each tensor copied
+    counts once in ``utils.profiling.counters[site]``: a copy of a card's
+    tensor waits for the card."""
     if isinstance(tree, tuple):
-        out = [to_numpy(x) for x in tree]
+        out = [to_numpy(x, site) for x in tree]
         return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
     if isinstance(tree, torch.Tensor):
+        if site is not None:
+            counters[site] += 1
         return tree.detach().cpu().numpy()
     return tree

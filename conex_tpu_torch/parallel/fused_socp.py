@@ -18,8 +18,8 @@ and the dual recovery.
 ``socp_plan`` makes from the shape (lanes per scenario, scenarios per
 block, shared memory or global scratch), or the call raises; a CPU
 tensor goes to ``solve_socp_plain``, the kernel's body written in plain
-PyTorch over a leading scenario axis.  ``solve_socp_kernel.launches``
-counts the kernel's launches.
+PyTorch over a leading scenario axis.
+``utils.profiling.counters["socp.calls"]`` counts the kernel's launches.
 
 As in the JAX kernel, ``SolverConfig.mu_floor_drop_ratio`` and
 ``inv_sqrt_mu_cap_scaled`` are not read: the fused path has no
@@ -39,6 +39,7 @@ import torch
 
 from ..config import KKT_SOLVER_LLT, WARMSTART, SolverConfig
 from ..solver.mu import SlackAgg, mu_from_divergence
+from ..utils.profiling import counters
 
 
 class FusedSOCPResult(NamedTuple):
@@ -648,11 +649,8 @@ def solve_socp_kernel(A, c, b, w0, k0, bsc0, csc0, config: SolverConfig,
                  ctypes.addressof(iparams), ctypes.addressof(dparams), stream)
     if err != 0:
         raise RuntimeError(f"fused SOCP kernel launch failed: cudaError {err} ({plan.describe()})")
-    solve_socp_kernel.launches += 1
+    counters["socp.calls"] += 1
     return RawResult(y, w, k, k_max, b_sc, c_sc, by, cx, *ints, stats_k, stats_d)
-
-
-solve_socp_kernel.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -39,6 +39,7 @@ import torch.distributed as dist
 from ..cones.base import tree_map
 from ..config import SolverConfig
 from ..solver.loop import _add_scenario, _solve_impl, _strip_scenario
+from ..utils.profiling import entry
 from .collectives import psum
 
 
@@ -94,6 +95,7 @@ def _unshard(tree, dim: int, index: int, size: int, group):
     return tree_map(lambda x: next(summed).to(x.dtype), tree)
 
 
+@entry()
 def solve_scenarios(blocks, eq_blocks, b, init_ws, init_scalars,
                     config: SolverConfig, mesh=None, axis: str = "dp"):
     """Solve a batch of same-structure programs, batched over the leading
@@ -112,6 +114,7 @@ def solve_scenarios(blocks, eq_blocks, b, init_ws, init_scalars,
     return _unshard(res, 0, index, size, group)
 
 
+@entry()
 def solve_cone_sharded(blocks, eq_blocks, b, init_ws, init_scalars,
                        config: SolverConfig, mesh, axis: str = "tp",
                        kkt_structure=None):
@@ -143,6 +146,7 @@ def solve_cone_sharded(blocks, eq_blocks, b, init_ws, init_scalars,
     return _strip_scenario(res)
 
 
+@entry()
 def solve_scenarios_cone_sharded(
     blocks, eq_blocks, b, init_ws, init_scalars, config: SolverConfig,
     mesh, total_rank: float, dp_axis: str = "dp", tp_axis: str = "tp",

@@ -12,6 +12,13 @@ clique tree of its blocks' variable sets, factored per clique (the
 unrolled structure) or, above ``SCAN_CLIQUE_THRESHOLD`` cliques, on the
 block-compressed buffer.  A Program runs on one device, given as
 ``device=``: the card (``"cuda"``) unless the caller asks for ``"cpu"``.
+
+Every ``add_*`` runs in the span ``conex.program.add``, the reads of the
+duals in ``conex.program.dual``, and ``solve`` is an entry of the port
+(``conex.call/<n>``) whose copy of the result to numpy runs in
+``conex.program.copy_out`` (utils/profiling.py).  Each copy of a host
+array to the Program's device counts in ``sync.front_end.copy_in``, each
+tensor of the result copied back in ``sync.front_end.copy_out``.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from .convert import to_numpy
 from .solver.loop import SolveResult, _solve_impl, _strip_scenario, assemble
 from .supernodal.compressed import CompressedSupernodalStructure
 from .supernodal.solver import SupernodalStructure
+from .utils.profiling import counters, entry, span, spanned
 
 # Above this many cliques the solve uses the block-compressed supernodal
 # path (supernodal/compressed.py: the flat padded per-clique factor buffer)
@@ -94,6 +102,7 @@ class Program:
     def _tensor(self, x):
         """A copy of x on the Program's device in its type: no tensor of
         the Program shares memory with a caller's array."""
+        counters["sync.front_end.copy_in"] += 1
         return torch.tensor(np.asarray(x, dtype=np.float64), dtype=self.dtype,
                             device=self.device)
 
@@ -110,6 +119,7 @@ class Program:
             raise ValueError("duplicate variables in constraint")
         return None if t == tuple(range(v)) else t
 
+    @spanned("conex.program.add")
     def add_linear_constraint(self, A, c, variables=None):
         """c - A y >= 0 elementwise (reference LinearConstraint).
 
@@ -126,6 +136,7 @@ class Program:
         )
         return len(self._blocks) - 1
 
+    @spanned("conex.program.add")
     def add_soc_constraint(self, A, c, variables=None):
         """c - A y in the Lorentz cone (reference SOCConstraint).
 
@@ -146,6 +157,7 @@ class Program:
         )
         return len(self._blocks) - 1
 
+    @spanned("conex.program.add")
     def add_lmi_constraint(self, A, C, variables=None):
         """C - sum_i y_i A_i PSD (reference DenseLMIConstraint).
 
@@ -170,6 +182,7 @@ class Program:
         )
         return len(self._blocks) - 1
 
+    @spanned("conex.program.add")
     def add_hermitian_constraint(self, A, C, variables=None):
         """C - sum_i y_i A_i PSD in a hypercomplex Hermitian algebra.
 
@@ -212,6 +225,7 @@ class Program:
         )
         return len(self._blocks) - 1
 
+    @spanned("conex.program.add")
     def add_quadratic_cone_constraint(self, A, c, Q=None, variables=None):
         """c - A y in the Q-weighted Lorentz cone (reference
         QuadraticConstraint): slack (s0, s1) with s0 >= sqrt(s1' Q s1).
@@ -239,6 +253,7 @@ class Program:
         ))
         return len(self._blocks) - 1
 
+    @spanned("conex.program.add")
     def add_quadratic_cost_epigraph(self, Qi, variables, epigraph_variable):
         """t >= 1/2 x'Qi x through a Q-weighted Lorentz cone, with x the
         ``variables`` and t the ``epigraph_variable``; add -1 * t to the
@@ -258,6 +273,7 @@ class Program:
             variables=variables + [int(epigraph_variable)],
         )
 
+    @spanned("conex.program.add")
     def add_quadratic_cost(self, Q, variables=None):
         """Adds -1/2 y'Q y to the (maximized) objective.
 
@@ -273,6 +289,7 @@ class Program:
         self._blocks.append(QuadraticCost(Q=self._tensor(Q)[None], vars_=vars_))
         return len(self._blocks) - 1
 
+    @spanned("conex.program.add")
     def add_equality_constraint(self, A, b, variables=None):
         """A y = b (reference EqualityConstraints); returns the index that
         get_equality_dual takes."""
@@ -410,6 +427,7 @@ class Program:
             config = config.replace(kkt_solver=KKT_SOLVER_LDLT)
         return config
 
+    @entry()
     def solve(self, b, config: Optional[SolverConfig] = None) -> Result:
         """Maximize b'y over the constraints.  reference: Solve(b, prog, ...)."""
         config = self._default_config(config)
@@ -450,7 +468,8 @@ class Program:
 
         self._ws = res.ws
         self._scalings = (res.b_scaling, res.c_scaling)
-        raw = to_numpy(_strip_scenario(res))
+        with span("conex.program.copy_out"):
+            raw = to_numpy(_strip_scenario(res), site="sync.front_end.copy_out")
         self._last_result = raw
         n_iter = int(raw.num_iterations)
         return Result(
@@ -465,6 +484,7 @@ class Program:
             _raw=raw,
         )
 
+    @spanned("conex.program.dual")
     def get_dual_variable(self, i: int) -> np.ndarray:
         """Dual (primal-cone) variable of constraint i.
 
@@ -485,6 +505,7 @@ class Program:
             w = w[0]  # single-cone batch: return the cone element itself
         return w
 
+    @spanned("conex.program.dual")
     def get_equality_dual(self, i: int) -> np.ndarray:
         """lambda of equality block i, from the tail of the KKT solution.
 

@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..config import KKT_SOLVER_LDLT, KKT_SOLVER_LLT, KKT_SOLVER_QR
+from ..utils.profiling import spanned
 
 # Pivot clamp magnitude (reference RLDLT.h:261-263, 310-318).
 LDLT_PIVOT_CLAMP = 1e-9
@@ -164,6 +165,7 @@ def _sparse(structure, mode: int) -> bool:
     return structure is not None and mode in (KKT_SOLVER_LLT, KKT_SOLVER_LDLT)
 
 
+@spanned("conex.factor")
 def factor(K, mode: int, structure=None, group=None,
            island_dtype=None) -> KKTFactor:
     """Factor the (S, N, N) KKT matrices, or with a (distributed)
@@ -237,6 +239,7 @@ def _residual_product(matrix, structure, x):
     return (matrix @ x[..., None])[..., 0]
 
 
+@spanned("conex.kkt_solve")
 def solve(f: KKTFactor, b, mode: int, refinement_steps: int = 0,
           structure=None, group=None):
     """Solve K x = b per scenario, with optional iterative refinement;

@@ -9,8 +9,11 @@ boolean tensors and applied with per-scenario selects, so each scenario
 follows its own branch exactly as under vmap.
 
 The JAX ``while_loop`` becomes a Python loop of at most ``max_iterations``
-passes.  It stops early only when every scenario is done (one host sync per
-pass); under ``fixed_iterations`` it runs all passes without that sync.
+passes.  It stops early only when every scenario is done: after each pass
+it reads the count of scenarios not done (one host sync per pass), which
+``utils.profiling.counters`` adds up as the live share of the batch's
+work.  Under ``fixed_iterations`` it runs all passes without that sync.
+Each phase of a pass runs inside its profiler span (utils/profiling.py).
 
 Cone sharding (parallel/sharded.py): with a process ``group`` each rank
 holds a shard of the cone blocks, and every cross-cone aggregation (the
@@ -35,6 +38,7 @@ from ..parallel.collectives import pany, pmax, pmin, psum
 from ..supernodal.compressed import (CompressedSupernodalStructure, empty_buffer,
                                      scatter_contribution)
 from ..supernodal.dist_compressed import DistributedCompressedStructure
+from ..utils.profiling import counters, entry, span, spanned
 from . import kkt
 from .mu import SlackAgg, mu_from_divergence
 
@@ -109,6 +113,7 @@ def _scatter_vec(x, vars_, xi):
     x[:, slice(0, xi.shape[-1]) if vars_ is None else list(vars_)] += xi
 
 
+@spanned("conex.assemble")
 def assemble(blocks, eq_blocks, ws, n_kkt: int, m: int, dtype, structure=None,
              group=None):
     """Assemble the (S, n_kkt, n_kkt) KKT matrices and residuals from the
@@ -133,7 +138,10 @@ def assemble(blocks, eq_blocks, ws, n_kkt: int, m: int, dtype, structure=None,
     equality blocks are replicated, so their rows are counted once per rank,
     as in the JAX package (conex_tpu/solver/loop.py:160-183).
     """
-    outs = [blk.schur(w) for blk, w in zip(blocks, ws)]
+    outs = []
+    for blk, w in zip(blocks, ws):
+        with span("conex.schur"):
+            outs.append(blk.schur(w))
     S, device = outs[0].G.shape[0], outs[0].G.device
     if isinstance(structure, DistributedCompressedStructure):
         structure = structure.base
@@ -183,6 +191,7 @@ def assemble(blocks, eq_blocks, ws, n_kkt: int, m: int, dtype, structure=None,
 # ---------------------------------------------------------------------------
 
 
+@spanned("conex.prepare_step")
 def _prepare_step_all(blocks, ws, y, c_weight, e_weight, group=None):
     """reference: PrepareStep sweep, cone_program.h:69-90."""
     caches = []
@@ -197,6 +206,7 @@ def _prepare_step_all(blocks, ws, y, c_weight, e_weight, group=None):
     return tuple(caches), pmax(norminf, group), psum((normsq,), group)[0]
 
 
+@spanned("conex.take_step")
 def _take_step_all(blocks, ws, caches, step_size):
     """reference: TakeStep sweep, cone_program.h:92-97."""
     return tuple(
@@ -205,6 +215,7 @@ def _take_step_all(blocks, ws, caches, step_size):
     )
 
 
+@spanned("conex.slack_stats")
 def _slack_stats_all(blocks, ws, y, c_weight, group=None):
     """reference: GetWeightedSlackEigenvalues agg, cone_program.cc:31-57.
 
@@ -253,11 +264,12 @@ def _mu_line_search(blocks, ws, fac, config, AW, AQc_s, b_s_vec, c_scaling,
         if not getattr(blk, "supports_line_search", False):
             fail = torch.ones_like(fail)
             continue
-        lo, up, f = blk.line_search(
-            w, local_vars(y0, blk.vars_, blk.num_vars),
-            local_vars(y1, blk.vars_, blk.num_vars), 0.0, c_scaling,
-            config.dinf_upper_bound,
-        )
+        with span("conex.line_search"):
+            lo, up, f = blk.line_search(
+                w, local_vars(y0, blk.vars_, blk.num_vars),
+                local_vars(y1, blk.vars_, blk.num_vars), 0.0, c_scaling,
+                config.dinf_upper_bound,
+            )
         lower = torch.maximum(lower, lo)
         upper = torch.minimum(upper, up)
         fail = fail | f
@@ -275,6 +287,12 @@ def _mu_divergence(blocks, ws, fac, config, AQc_s, b_s_vec, c_scaling, rank_k,
     )
     p = _slack_stats_all(blocks, ws, ydiv, c_scaling, group)
     return mu_from_divergence(p, rank_k, config.divergence_upper_bound)
+
+
+def _merge(pred, on_true, on_false):
+    """tree_select of two loop states (or iterate tuples), in its span."""
+    with span("conex.select"):
+        return tree_select(pred, on_true, on_false)
 
 
 def _set_row(stats, i, value):
@@ -312,6 +330,7 @@ def _no_tf32():
 # ---------------------------------------------------------------------------
 
 
+@entry()
 def _solve_impl(blocks, eq_blocks, b, init_ws, init_scalars,
                 config: SolverConfig, kkt_structure=None, group=None,
                 rank_override=None):
@@ -325,7 +344,7 @@ def _solve_impl(blocks, eq_blocks, b, init_ws, init_scalars,
     cross-cone aggregation is an all-reduce over the group.
     ``rank_override`` must then be the global rank sum of the blocks."""
     _check_supported(config)
-    with _no_tf32() if b.is_cuda else contextlib.nullcontext():
+    with span("conex.solve"), _no_tf32() if b.is_cuda else contextlib.nullcontext():
         return _solve_loop(blocks, eq_blocks, b, init_ws, init_scalars, config,
                            kkt_structure, group, rank_override)
 
@@ -422,17 +441,18 @@ def _solve_loop(blocks, eq_blocks, b, init_ws, init_scalars,
         b_s_vec = b_full * b_scaling[:, None]
 
         # --- Mu update (cone_program.cc:374-403), branch-free ---
-        if config.enable_line_search:
-            temp = _mu_line_search(
-                blocks, s.ws, fac, config, AW, AQc_s, b_s_vec, c_scaling,
-                kkt_structure, group,
-            )
-            temp = torch.where(temp < 0, s.k, temp)
-        else:
-            temp = _mu_divergence(
-                blocks, s.ws, fac, config, AQc_s, b_s_vec, c_scaling, rank_k,
-                kkt_structure, group,
-            )
+        with span("conex.mu"):
+            if config.enable_line_search:
+                temp = _mu_line_search(
+                    blocks, s.ws, fac, config, AW, AQc_s, b_s_vec, c_scaling,
+                    kkt_structure, group,
+                )
+                temp = torch.where(temp < 0, s.k, temp)
+            else:
+                temp = _mu_divergence(
+                    blocks, s.ws, fac, config, AQc_s, b_s_vec, c_scaling, rank_k,
+                    kkt_structure, group,
+                )
         k_cand = torch.where(temp > 0, temp, s.k * 0.5)
 
         # --- Numerical-floor latch (see SolverConfig) ---
@@ -479,7 +499,7 @@ def _solve_loop(blocks, eq_blocks, b, init_ws, init_scalars,
         # --- Warmstart abort on large step (cone_program.cc:428-436) ---
         if warmstart:
             abort = (i == 0) & (norminf >= config.warmstart_abort_threshold)
-            ws_new = tree_select(abort, _identity_all(blocks, dtype), ws_new)
+            ws_new = _merge(abort, _identity_all(blocks, dtype), ws_new)
         else:
             abort = torch.zeros_like(s.done)
 
@@ -556,7 +576,7 @@ def _solve_loop(blocks, eq_blocks, b, init_ws, init_scalars,
         ffail = fac.fail
         if warmstart:
             abort_f = ffail & (i == 0)
-            ws_fail = tree_select(abort_f, _identity_all(blocks, dtype), s.ws)
+            ws_fail = _merge(abort_f, _identity_all(blocks, dtype), s.ws)
             aborted_f = abort_f
         else:
             abort_f = torch.zeros_like(ffail)
@@ -572,8 +592,9 @@ def _solve_loop(blocks, eq_blocks, b, init_ws, init_scalars,
             c_scaling=c_scaling,
             k_max=k_max,
         )
-        return tree_select(ffail, s_fail, sn)
+        return _merge(ffail, s_fail, sn)
 
+    @spanned("conex.pass")
     def body(s: LoopState) -> LoopState:
         # Break-before-assemble: final centering budget exhausted
         # (cone_program.cc:331-336).  The iteration is always computed; a
@@ -590,9 +611,9 @@ def _solve_loop(blocks, eq_blocks, b, init_ws, init_scalars,
             done=torch.ones_like(s.done),
             max_iters_reached=s.i >= T - 1,
         )
-        merged = tree_select(s.done | stop_centering, s_marked, sn)
+        merged = _merge(s.done | stop_centering, s_marked, sn)
         # A scenario that was already done stays exactly as it was.
-        return tree_select(s.done, s, merged)
+        return _merge(s.done, s, merged)
 
     def scalars(key):
         return init_scalars[key].to(dtype=dtype, device=device).reshape(S)
@@ -631,13 +652,31 @@ def _solve_loop(blocks, eq_blocks, b, init_ws, init_scalars,
     # Every scenario that is not done has run exactly as many passes as
     # the loop has, so all of them stay below max_iterations inside it.
     # Under a group, ``done`` comes from reduced and replicated values: the
-    # same on every rank, which all leave the loop at the same pass.
+    # same on every rank, which all leave the loop at the same pass.  No
+    # scenario is done before the first pass; after each pass one read of
+    # the count of those not done (under fixed_iterations none: every
+    # scenario counts as live) decides whether another follows.
+    live = S
     for _ in range(T):
-        if not config.fixed_iterations and bool(s.done.all()):
-            break
+        counters["loop.passes"] += 1
+        counters["loop.scenario_passes"] += S
+        counters["loop.live_scenario_passes"] += live
         s = body(s)
+        if not config.fixed_iterations:
+            counters["sync.loop.done"] += 1
+            live = int((~s.done).sum())
+            if live == 0:
+                break
+    return _epilogue(s, blocks, eq_blocks, b_full, n_kkt, m, dtype, config,
+                     kkt_structure, group, island)
 
+
+@spanned("conex.epilogue")
+def _epilogue(s: LoopState, blocks, eq_blocks, b_full, n_kkt, m, dtype,
+              config: SolverConfig, kkt_structure, group, island) -> SolveResult:
     # --- Epilogue (cone_program.cc:485-532) ---
+    mode = config.kkt_solver
+    refine = config.iterative_refinement_iterations
     mu = 1.0 / (s.k * s.k)
     infeasible = mu > config.infeasibility_threshold
     primal_infeasible = infeasible & (s.cx * s.k <= -0.5)

@@ -33,6 +33,7 @@ import conex_tpu_torch as ct
 from conex_tpu_torch import convert
 from conex_tpu_torch.parallel import fused_socp
 from conex_tpu_torch.parallel.fused_socp import FusedSOCPResult, solve_socp_fused
+from conex_tpu_torch.utils.profiling import counters
 
 from test_torch_soc import _close_per_scenario, random_socp
 
@@ -156,9 +157,9 @@ def test_fused_config_validation():
 
 def test_cpu_tensors_take_the_plain_version_and_the_kernel_refuses_them():
     A, c, b = (convert.tensor(x) for x in random_socp(np.random.default_rng(2), 3, 1, 3, 2))
-    before = fused_socp.solve_socp_kernel.launches
+    before = counters["socp.calls"]
     out = solve_socp_fused(A, c, b, ct.SolverConfig(max_iterations=5))
-    assert fused_socp.solve_socp_kernel.launches == before
+    assert counters["socp.calls"] == before
     assert out.y.shape == (3, 2) and out.stats_k.shape == (3, 5)
     w0 = torch.zeros(3, 1, 4, dtype=torch.float64)
     ones = torch.ones(3, dtype=torch.float64)
@@ -280,7 +281,7 @@ def test_fused_kernel_matches_plain_on_card(dtype, route, team):
         raw = fused_socp.solve_socp_plain(*(x.to(dt) for x in (*args64, *inits)), cfg)
         return convert.to_numpy(fused_socp.epilogue(raw, cfg))
 
-    before = fused_socp.solve_socp_kernel.launches
+    before = counters["socp.calls"]
     if route == "default":
         got = solve_socp_fused(*(x.to(dtype) for x in args64), cfg)
     else:
@@ -290,7 +291,7 @@ def test_fused_kernel_matches_plain_on_card(dtype, route, team):
         got = fused_socp.epilogue(fused_socp.solve_socp_kernel(*inputs, cfg, plan=plan),
                                   cfg)
     torch.cuda.synchronize()
-    assert fused_socp.solve_socp_kernel.launches == before + 1
+    assert counters["socp.calls"] == before + 1
     got, want = convert.to_numpy(got), plain(dtype)
     for name in ("num_iterations", "solved", "fail", "primal_infeasible",
                  "dual_infeasible", "mu_stalled", "warmstart_aborted"):
