@@ -152,6 +152,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    (count and host time, from the profiler); K1 at one rank's shape
    (1, 64, 50, 100) against its plain version; 4h-d, utils/profiling.py's
    phase_timings of one 100 x 100 LMI program with m = 50 (f32);
+4i. the warm eigenvalue estimate (algebra/sym.py) replayed as a CUDA graph
+   against its eager body, to the bit (torch.equal on all seven outputs,
+   two replays on the captured inputs and one on new ones) at the cells'
+   shapes (256, 64 and 1 cones of n = 100), a complex batch (S = 32,
+   n = 64, d = 2) and the sparse chain's clique (n = 8), f64; and one
+   b256 batch of the benchmark's sdp_n100_m100 through solve_scenarios,
+   graphed and eager: y, num_iterations and solved equal to the bit;
+   every warm estimate of the graphed solves replays a graph; the times
+   and launch calls of both;
 5. a known answer: a small f64 SDP through Program(device="cuda"), against
    lambda_min(C) and the CPU solve;
 5b. a known SOC answer through Program(device="cuda"): max b'y s.t.
@@ -215,6 +224,7 @@ card's name and power limit, and {"ok": true, "device": {...}}.  Imports
 nothing of JAX.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -1493,7 +1503,7 @@ def phase_lp_known_answer(device):
 # ---------------------------------------------------------------------------
 
 LAUNCH_CALLS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
-                "cuLaunchKernelEx")
+                "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
 DEVICE_EVENTS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -1502,7 +1512,8 @@ def device_profile(fn):
     launch calls, [(ms, count, name)] of the device kernels, largest
     first).  The trace is read from its Chrome-trace export (the device's
     kernel, copy and set events, as key_averages() counts them; launch
-    calls by their runtime and driver API events), which takes a third of
+    calls, a graph's launch one, by their runtime and driver API events),
+    which takes a third of
     the time key_averages() takes on a trace of 10^5 launches.  A spin kernel goes first and is left out of
     every count (the trace may miss the first kernel launched in its
     window); a trace that holds fewer kernels than launch calls is taken
@@ -3599,6 +3610,150 @@ def phase_sharded(device):
     return k1_total
 
 
+# ---------------------------------------------------------------------------
+# The graphed warm eigenvalue estimate (phase 4i)
+# ---------------------------------------------------------------------------
+
+# (label, S, B, n, d): the cells' cones at n = 100 (256, 64 and 1
+# programs), a complex (d = 2) batch of phase 4f's shape through its real
+# representation, and the sparse chain's clique (phase 4g).
+WARM_SHAPES = (("b256", 256, 1, 100, 1), ("b64", 64, 1, 100, 1),
+               ("single", 1, 1, 100, 1), ("herm_d2", 32, 1, 64, 2),
+               ("clique", 1, 1, 8, 1))
+WARM_REPS = 20  # CUDA-event timing of each estimator
+
+
+def warm_inputs(S, B, n, d, seed, device):
+    """(WS, vhi, uhi, vlo, ulo, lam) as a cone hands them to the warm
+    estimator, in f64: WS = W S with W PSD (W = X X^H / n + 0.2 I) and S
+    Hermitian (the real representation at d > 1), the seeds and estimates
+    of the cold estimator at a nearby S."""
+    import torch
+
+    from conex_tpu_torch.algebra import hypercomplex as hc
+    from conex_tpu_torch.algebra import sym
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    kw = dict(dtype=torch.float64, device=device, generator=g)
+    X = torch.rand(S, B, d, n, n, **kw) * 2 - 1
+    W = hc.multiply(X, hc.conj_transpose(X)) / n
+    W = W + 0.2 * hc.identity(d, n, torch.float64, device)
+
+    def ws():
+        Y = hc.make_hermitian(torch.rand(S, B, d, n, n, **kw) * 2 - 1)
+        WS = hc.multiply(W, Y)
+        return WS[:, :, 0] if d == 1 else hc.real_representation(WS)
+
+    M0 = ws()
+    M = M0 + 0.05 * ws()
+    _, _, seeds, lam = sym.extreme_eigenvalues_seeded(M0)
+    return (M.contiguous(), *(x.contiguous() for x in seeds), lam.contiguous())
+
+
+def warm_outputs(out):
+    lam_lo, lam_hi, seeds, lam = out
+    return (lam_lo, lam_hi, *seeds, lam)
+
+
+@contextlib.contextmanager
+def eager_warm():
+    """The cones run the warm estimator's eager body on the card, one torch
+    call at a time, as before graphs."""
+    from conex_tpu_torch.algebra import sym
+
+    graphed = sym.extreme_eigenvalues_warm
+    sym.extreme_eigenvalues_warm = (
+        lambda M, vhi, uhi, vlo, ulo, lam_prev, num_steps=16:
+        sym._warm_eager(M, vhi, uhi, vlo, ulo, lam_prev, num_steps))
+    try:
+        yield
+    finally:
+        sym.extreme_eigenvalues_warm = graphed
+
+
+def phase_warm_graph(device):
+    """4i: the warm eigenvalue estimate replayed as a CUDA graph against its
+    eager body on the card, to the bit: all seven outputs at WARM_SHAPES,
+    in f64 under a solve's matmul settings, two replays on the captured
+    inputs and one on new inputs; then one b256 batch of the benchmark's
+    sdp_n100_m100 through solve_scenarios, graphed and eager: y,
+    num_iterations and solved equal to the bit.  Times and launches of both
+    beside them."""
+    import torch
+
+    from conex_tpu_torch.algebra import sym
+    from conex_tpu_torch.solver.loop import _no_tf32
+    from conex_tpu_torch.utils.profiling import counters
+    from portbench import drivers, spec
+    from portbench.workload import dtype_of
+
+    start = time.perf_counter()
+    log(f"[4i warm graph] {card_name_and_power_limit()}")
+    with _no_tf32():
+        for label, S, B, n, d in WARM_SHAPES:
+            steps = max(16, min(64, d * n // 6))  # as cones/psd.py, hermitian.py
+            first = warm_inputs(S, B, n, d, 1, device)
+            other = warm_inputs(S, B, n, d, 2, device)
+            before = dict(counters)
+            got = [warm_outputs(sym.extreme_eigenvalues_warm(*x, num_steps=steps))
+                   for x in (first, first, other)]
+            want = [warm_outputs(sym._warm_eager(*x, steps)) for x in (first, first, other)]
+            moved = {k: counters[k] - before.get(k, 0)
+                     for k in ("sym.warm.calls", "sym.warm.captures", "sym.warm.replays")}
+            equal = all(torch.equal(g, w) and g.dtype == w.dtype
+                        for gs, ws in zip(got, want) for g, w in zip(gs, ws))
+            graph_ms = time_ms(lambda: sym.extreme_eigenvalues_warm(*first, num_steps=steps),
+                               WARM_REPS)
+            eager_ms = time_ms(lambda: sym._warm_eager(*first, steps), WARM_REPS)
+            _, graph_launches, _ = device_profile(
+                lambda: sym.extreme_eigenvalues_warm(*first, num_steps=steps))
+            _, eager_launches, _ = device_profile(lambda: sym._warm_eager(*first, steps))
+            log(f"[4i warm graph] {label}: WS {tuple(first[0].shape)}, {steps} steps; "
+                f"equal to the bit {equal}; counters {moved}; graph {graph_ms:.4f} ms, "
+                f"{graph_launches} launch calls; eager {eager_ms:.4f} ms, "
+                f"{eager_launches} launch calls")
+            if not equal:
+                fail(f"4i {label}: the graphed warm estimate differs from the eager one")
+            if moved["sym.warm.replays"] != 3 or moved["sym.warm.calls"] != 3:
+                fail(f"4i {label}: {moved}: the estimate did not replay a graph")
+
+    config = spec.load_config("sdp_n100_m100")
+    traffic = dict(spec.load_traffic("b256"), pool=1)
+    driver = drivers.make(config, traffic, device, dtype_of(config["dtype"]))
+    runs = {}
+    for label in ("graph", "eager", "graph again"):
+        before = dict(counters)
+        t0 = time.perf_counter()
+        if label == "eager":
+            with eager_warm():
+                _, res = driver.call(0)
+        else:
+            _, res = driver.call(0)
+        wall = time.perf_counter() - t0
+        replays = counters["sym.warm.replays"] - before.get("sym.warm.replays", 0)
+        calls = counters["sym.warm.calls"] - before.get("sym.warm.calls", 0)
+        runs[label] = res
+        log(f"[4i warm graph] b256 {label}: {wall:.3f} s, max iterations "
+            f"{int(res.num_iterations.max())}, mean {float(res.num_iterations.double().mean()):.4f}, "
+            f"solved {int(res.solved.sum())} of {res.solved.numel()}; warm estimates "
+            f"{calls}, replayed {replays}")
+        if label != "eager" and (calls == 0 or replays != calls):
+            fail(f"4i b256 {label}: {replays} of {calls} warm estimates replayed a graph")
+        if label == "eager" and replays:
+            fail("4i b256 eager: a graph replayed")
+    want = runs["eager"]
+    for label in ("graph", "graph again"):
+        got = runs[label]
+        same = {f: torch.equal(getattr(got, f), getattr(want, f))
+                for f in ("y", "num_iterations", "solved")}
+        log(f"[4i warm graph] b256 {label} against eager, equal to the bit: {same}")
+        if not all(same.values()):
+            fail(f"4i b256: the {label} solve differs from the eager one: {same}")
+    del driver, runs, want
+    torch.cuda.empty_cache()
+    log(f"[4i warm graph] ok in {time.perf_counter() - start:.1f} s")
+
+
 def phase_probe_entry_points():
     """The two probe harnesses on the card; returns each variant's kernel
     launches in this phase."""
@@ -3693,6 +3848,7 @@ def main():
     phase_herm(device)
     schur["path_launches"]["4g"] = phase_sparse(device)
     schur["path_launches"]["4h"] = phase_sharded(device)
+    phase_warm_graph(device)
     phase_known_answer(device)
     phase_soc_known_answer(device)
     phase_lp_known_answer(device)

@@ -10,12 +10,18 @@ leading batch axes.
 The float32 stages on float64 inputs are kept exactly as the JAX package
 has them (eigenvector estimates in float32, Rayleigh quotients in the
 input dtype): the two packages agree only if they round at the same
-places.  The matrix products are plain ``torch.matmul``.
+places.  The matrix products are plain ``torch.matmul``.  On a CUDA card
+the warm estimator replays a CUDA graph captured from those same calls.
 """
 
 from __future__ import annotations
 
+import collections
+import threading
+
 import torch
+
+from ..utils.profiling import counters
 
 
 def expm_pade(A: torch.Tensor) -> torch.Tensor:
@@ -208,9 +214,134 @@ def extreme_eigenvalues_warm(M, vhi, uhi, vlo, ulo, lam_prev,
     shift is 4 * max|lam_prev| (the per-iteration drift bound), capped by
     the Frobenius norm.
 
+    On a CUDA card the estimate replays one captured CUDA graph per key
+    (``_graph_key``): the same kernels on the same values as the eager
+    body, so the same bits, in one launch instead of about 480.  Inputs a
+    graph cannot reproduce to the bit (not contiguous, not at the start of
+    an allocation, needing gradients, or met inside another capture) run
+    the eager body, as every CPU tensor does.  Counted on the card:
+    ``sym.warm.calls``, ``sym.warm.captures``, ``sym.warm.replays``.
+
     reference role: PrepareStep / GetWeightedSlackEigenvalues norms
     (psd_constraint.cc:63-77).
     """
+    if M.device.type != "cuda":
+        return _warm_eager(M, vhi, uhi, vlo, ulo, lam_prev, num_steps)
+    counters["sym.warm.calls"] += 1
+    inputs = (M, vhi, uhi, vlo, ulo, lam_prev)
+    if not _graphable(inputs):
+        return _warm_eager(*inputs, num_steps)
+    key = _graph_key(inputs, num_steps,
+                     torch.cuda.current_stream(M.device).cuda_stream)
+    return _replay(key, inputs, num_steps)
+
+
+# At most this many captured estimators are kept; each holds its static
+# buffers and a private memory pool (from the shapes, about 50 MB at 256
+# cones of n = 100: M twice in f64 and once in f32).
+GRAPH_CAPACITY = 16
+# Fresh blocks of the caching allocator, the static buffers among them,
+# start on a 512-byte boundary.  An input on a 256-byte one passes the
+# alignment tests of cuBLAS and of ATen's vectorized loads as they do, so
+# the same kernels run in the same order.
+_ALIGNMENT = 256
+
+
+class _GraphCache:
+    """At most ``capacity`` entries by key; a lookup makes its entry the
+    newest, and a put into a full cache evicts the oldest."""
+
+    def __init__(self, capacity: int):
+        self.capacity = capacity
+        self._entries = collections.OrderedDict()
+
+    def __len__(self):
+        return len(self._entries)
+
+    def __contains__(self, key):
+        return key in self._entries
+
+    def get(self, key):
+        entry = self._entries.get(key)
+        if entry is not None:
+            self._entries.move_to_end(key)
+        return entry
+
+    def put(self, key, entry):
+        self._entries[key] = entry
+        self._entries.move_to_end(key)
+        while len(self._entries) > self.capacity:
+            self._entries.popitem(last=False)
+
+
+_graphs = _GraphCache(GRAPH_CAPACITY)
+# Ranks of parallel/launch.py run as threads of one process.
+_graphs_lock = threading.Lock()
+_capture_streams = {}
+
+
+def _graph_key(inputs, num_steps: int, stream=None):
+    """What picks the kernels of the eager body: the inputs' shapes and
+    dtypes, the device, the step count and the global matmul settings
+    (solver/loop.py's _no_tf32 changes them for a solve); and the stream,
+    so that threads on other streams never share static buffers."""
+    return (tuple((tuple(x.shape), x.dtype) for x in inputs), inputs[0].device,
+            int(num_steps), torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision(),
+            torch.are_deterministic_algorithms_enabled(), stream)
+
+
+def _replay(key, inputs, num_steps: int):
+    """Replay the graph of ``key``, captured first if the cache lacks it."""
+    with _graphs_lock:
+        graph = _graphs.get(key)
+        if graph is None:
+            graph = _WarmGraph(inputs, num_steps)
+            _graphs.put(key, graph)
+            counters["sym.warm.captures"] += 1
+        counters["sym.warm.replays"] += 1
+        return graph.replay(inputs)
+
+
+def _graphable(inputs) -> bool:
+    return (all(x.is_contiguous() and not x.requires_grad
+                and x.data_ptr() % _ALIGNMENT == 0 for x in inputs)
+            and not torch.cuda.is_current_stream_capturing())
+
+
+class _WarmGraph:
+    """The eager body captured into static input buffers."""
+
+    def __init__(self, inputs, num_steps: int):
+        device = inputs[0].device
+        self.static = tuple(x.clone() for x in inputs)
+        stream = _capture_streams.get(device)
+        if stream is None:
+            stream = _capture_streams[device] = torch.cuda.Stream(device)
+        # A run on the capture stream first, as torch.cuda.graphs advises:
+        # cuBLAS's handle and workspace for it exist before the capture.
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            _warm_eager(*self.static, num_steps)
+        torch.cuda.current_stream(device).wait_stream(stream)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=stream,
+                              capture_error_mode="thread_local"):
+            lam_lo, lam_hi, seeds, lam = _warm_eager(*self.static, num_steps)
+        self.outputs = (lam_lo, lam_hi, *seeds, lam)
+
+    def replay(self, inputs):
+        for buf, x in zip(self.static, inputs):
+            buf.copy_(x)
+        self.graph.replay()
+        # Copies: the next replay overwrites the outputs, and the cone keeps
+        # the seeds and lam across passes.
+        lam_lo, lam_hi, vhi, uhi, vlo, ulo, lam = (o.clone() for o in self.outputs)
+        return lam_lo, lam_hi, (vhi, uhi, vlo, ulo), lam
+
+
+def _warm_eager(M, vhi, uhi, vlo, ulo, lam_prev, num_steps: int):
+    """The body of extreme_eigenvalues_warm, one torch call at a time."""
     fro = torch.sqrt(torch.sum(M * M, dim=(-2, -1))) + 1e-30
     sig_warm = 4.0 * torch.amax(torch.abs(lam_prev), dim=-1)
     # The 1.25 margin keeps sigma strictly above rho(M): with sigma == rho

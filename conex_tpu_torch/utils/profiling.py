@@ -17,7 +17,10 @@ The port's own instruments:
   ``loop.live_scenario_passes`` (the scenarios not done at the start of a
   pass); one ``sync.<site>`` per host read of device data (or host copy to
   it that waits for the card); ``schur.calls`` and ``socp.calls``, the
-  calls of the kernels K1 and K2.
+  calls of the kernels K1 and K2; ``sym.warm.calls``,
+  ``sym.warm.captures`` and ``sym.warm.replays``, the warm eigenvalue
+  estimates on the card and the CUDA graphs captured and replayed for
+  them (algebra/sym.py).
 
 The spans, by layer: ``conex.call/<n>``, ``conex.program.add``,
 ``conex.program.copy_out``, ``conex.program.dual`` (front end);
