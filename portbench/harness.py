@@ -6,6 +6,7 @@ import gc
 import sys
 import time
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Optional
 
 import torch
@@ -30,6 +31,7 @@ class Context:
     programs: drivers.Programs  # every program the window solved
     tolerance: float  # the relative gap a solved program keeps to
     solver: object  # the SolverConfig of the solves
+    problem: object  # the configuration's class, problems/<class>.py
     final: drivers.Final  # the port's state at the end of the window
     trace: Optional[tracing.Trace] = None  # one more call, traced
     traced_iterations: int = 0  # the Newton iterations of that call
@@ -41,16 +43,18 @@ class Context:
 def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool,
              device, t_start: float, *, dtype: Optional[str] = None,
              config: Optional[dict] = None, traffic: Optional[dict] = None,
-             limits: Optional[dict] = None):
+             limits: Optional[dict] = None, problems: Path = spec.PROBLEMS):
     """Run ``cell`` once: its result line as a dict, and every number the
     check computed (with the readings it does not compare).
 
     ``t_start`` is when the process started its set-up.  ``dtype``,
     ``config``, ``traffic`` and ``limits`` replace what the cell's files
-    say (the control, and the tests' small shapes)."""
+    say (the control, and the tests' small shapes); the configuration's
+    class is found in ``problems``."""
     config = config or spec.load_config(cell["config"])
     traffic = traffic or spec.load_traffic(cell["traffic"])
     limits = spec.load_limits(cell["name"]) if limits is None else limits
+    problem = spec.problem_of(config, problems)
     dtype = dtype or config["dtype"]
     device = torch.device(device)
     on_card = device.type == "cuda"
@@ -60,7 +64,7 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool,
         _build.build()  # the kernel library; only a checkout's first run compiles
         torch.cuda.reset_peak_memory_stats(device)
 
-    driver = drivers.make(config, traffic, device, dtype_of(dtype))
+    driver = drivers.make(config, traffic, device, dtype_of(dtype), cell["chips"], problem)
     driver.call(0)  # every shape the window uses
     setup_s = time.perf_counter() - t_start
 
@@ -83,12 +87,12 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool,
     programs = driver.account(recs)
     final = driver.final(recs[-1])
     answers = driver.answers(recs)
-    schurs = check.schur_sample(seed, final, traffic["check"])
+    sample = problem.sample(seed, final, traffic["check"])
     ctx = Context(cell=cell, config=config, traffic=traffic, device=device,
                   dtype=dtype, kind=torch.cuda.get_device_name(device) if on_card else "cpu",
                   setup_s=setup_s, window_s=window_s, programs=programs,
                   tolerance=config["accuracy"]["relative_gap"],
-                  solver=solver_config(config), final=final)
+                  solver=solver_config(config), problem=problem, final=final)
     if trace:
         out, ctx.trace = tracing.profile(lambda: driver.call(len(recs)))
         ctx.traced_iterations = driver.iterations(out)
@@ -106,7 +110,7 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool,
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    numbers = check.judge(config, traffic, chunk_size, answers, schurs, device)
+    numbers = check.judge(problem, config, traffic, chunk_size, answers, sample, device)
     solved = int(programs.solved(config["accuracy"]["relative_gap"]).sum())
     result = {
         "correct": check.verdict(numbers, limits),
@@ -122,5 +126,5 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool,
         result["breakdown"] = {"device_ops": ctx.trace.device_ops,
                                "idle_gaps": ctx.trace.idle_gaps}
     result["checks"] = {k: {"value": numbers[k], "limit": limits.get(k)}
-                        for k in check.NUMBERS}
+                        for k in problem.NUMBERS}
     return result, numbers

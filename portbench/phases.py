@@ -5,11 +5,11 @@ phase of the solve.
 The port opens a profiler span at each layer boundary (``conex.call/<n>``,
 ``conex.solve``, ``conex.pass``, ``conex.assemble``, ...: conex_tpu_torch/
 utils/profiling.py) and keeps ``counters`` (passes, live scenarios, host
-syncs).  ``measure(ctx)`` makes the cell's driver again, its ``scenarios``
-pool cut to one batch, and runs its call 0 (batch 0, or request 0 of a
-``program`` pool) once under torch.profiler inside ``trace.MARK``, the
-device synchronized at its end; it keeps the counters' difference over the
-call and reduces the trace:
+syncs).  ``measure(ctx)`` makes the cell's driver again (drivers/, over
+the cell's problem class), its ``scenarios`` pool cut to one batch, and
+runs its call 0 (batch 0, or request 0 of a ``program`` pool) once under
+torch.profiler inside ``trace.MARK``, the device synchronized at its end;
+it keeps the counters' difference over the call and reduces the trace:
 
 - the window and busy time: ``trace.summarize``;
 - per span name (``conex.call/<n>`` summed as ``conex.call``): the spans'
@@ -197,16 +197,17 @@ def _counters():
     return counters
 
 
-def run(config, traffic, device, dtype) -> Phases:
+def run(config, traffic, device, dtype, chips=1, problem=None) -> Phases:
     """Call 0 of the cell's driver, its ``scenarios`` pool cut to one
-    batch, traced and counted."""
+    batch, traced and counted (drivers.make's ``chips`` and
+    ``problem``)."""
     import torch
 
     traffic = dict(traffic)
     if traffic["driver"] == "scenarios":
         traffic["pool"] = 1
     device = torch.device(device)
-    driver = drivers.make(config, traffic, device, dtype)
+    driver = drivers.make(config, traffic, device, dtype, chips, problem)
     counters = _counters()
     before = dict(counters) if counters is not None else None
     out, events = _profile(lambda: driver.call(0), device)
@@ -228,7 +229,8 @@ def measure(ctx) -> Phases:
     """The cell's Phases, made at the first reader's call in the process."""
     name = ctx.cell["name"]
     if name not in _DONE:
-        ph = run(ctx.config, ctx.traffic, ctx.device, dtype_of(ctx.dtype))
+        ph = run(ctx.config, ctx.traffic, ctx.device, dtype_of(ctx.dtype),
+                 ctx.cell["chips"], ctx.problem)
         for line in table(ph):
             ctx.note(line)
         _DONE[name] = ph

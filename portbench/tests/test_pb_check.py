@@ -1,7 +1,8 @@
-"""The correctness check at small shapes on the CPU: a sound run passes
-each cell's limits; the control (the port's float32 path) and a timed path
-broken underneath fail them, each planted answer fault (faults.py) by the
-number that is there to catch it."""
+"""The correctness check at small shapes on the CPU, in every cell whose
+configuration is of the dense_sdp class: a sound run passes each cell's
+limits; the control (the port's float32 path) and a timed path broken
+underneath fail them, each planted answer fault (faults.py) by the number
+that is there to catch it."""
 
 import time
 
@@ -12,7 +13,8 @@ from portbench import faults, spec
 from portbench.harness import run_cell
 
 BENCH = spec.load_benchmark()
-CELLS = [w["name"] for w in BENCH["workloads"]]
+CELLS = [w["name"] for w in BENCH["workloads"]
+         if spec.load_config(w["config"])["class"] == "dense_sdp"]
 SEED = 3_000_000_029
 
 

@@ -79,7 +79,7 @@ def test_configs_and_cells_name_files_that_exist():
     for w in BENCH["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["chips"] in (1, 4)
         traffic = spec.load_traffic(w["traffic"])
-        assert traffic["driver"] in ("scenarios", "program")
+        assert (spec.DRIVERS / f"{traffic['driver']}.py").is_file()
         assert spec.load_limits(w["name"])
     assert sum(w["chips"] == 4 for w in BENCH["workloads"]) <= max(1, len(BENCH["workloads"]) // 4)
 

@@ -1,7 +1,8 @@
 import torch
 
 from portbench.reference.sdp import relative_gap
-from portbench.workload import chunk_seed, make_chunk
+from portbench.problems.dense_sdp import make_chunk
+from portbench.workload import chunk_seed
 
 
 def test_the_same_seed_makes_the_same_programs():
