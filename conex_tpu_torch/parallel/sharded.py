@@ -38,6 +38,7 @@ import torch.distributed as dist
 
 from ..cones.base import tree_map
 from ..config import SolverConfig
+from ..solver.kkt import indefinite_mode
 from ..solver.loop import _add_scenario, _solve_impl, _strip_scenario
 from ..utils.profiling import entry
 from .collectives import psum
@@ -104,7 +105,10 @@ def solve_scenarios(blocks, eq_blocks, b, init_ws, init_scalars,
     With ``mesh`` given, the scenario axis is sharded over the mesh axis
     ``axis``: each rank solves its S / R scenarios with no collective
     inside the loop, and the results are reassembled on every rank after
-    it.  Without, the solve runs on the tensors' device."""
+    it.  Without, the solve runs on the tensors' device.  Equality blocks
+    solve with KKT_SOLVER_LDLT where ``config`` asks for LLT, as in
+    ``Program.solve``; so do the other entries below."""
+    config = indefinite_mode(config, eq_blocks)
     if mesh is None:
         return _solve_impl(blocks, eq_blocks, b, init_ws, init_scalars, config)
     group, index, size = _axis(mesh, axis)
@@ -132,6 +136,7 @@ def solve_cone_sharded(blocks, eq_blocks, b, init_ws, init_scalars,
     partitioned over the axis size also shares out the KKT clique-tree
     factorization (subtree elimination per rank and one separator
     all-reduce; supernodal/distributed.py)."""
+    config = indefinite_mode(config, eq_blocks)
     group, index, size = _axis(mesh, axis)
     blocks = _add_scenario(tuple(blocks))
     init_ws = _add_scenario(tuple(init_ws))
@@ -160,6 +165,7 @@ def solve_scenarios_cone_sharded(
     global cone rank of ONE program.  The dp groups may stop at different
     iterations, so the loop reduces over tp only; the results are
     reassembled over dp (and the states over tp) after it."""
+    config = indefinite_mode(config, eq_blocks)
     dp_group, dp_index, dp_size = _axis(mesh, dp_axis)
     tp_group, tp_index, tp_size = _axis(mesh, tp_axis)
 

@@ -29,7 +29,7 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
-from .config import COLDSTART, KKT_SOLVER_LDLT, KKT_SOLVER_LLT, WARMSTART, SolverConfig
+from .config import COLDSTART, WARMSTART, SolverConfig
 from .cones.equality import EqualityBlock
 from .cones.hermitian import HermitianCone, HermState
 from .cones.lp import LinearCone
@@ -38,6 +38,7 @@ from .cones.qcost import QuadraticCost
 from .cones.quadratic import QuadraticCone, epigraph_cone_data
 from .cones.soc import SOCCone
 from .convert import to_numpy
+from .solver.kkt import indefinite_mode
 from .solver.loop import SolveResult, _solve_impl, _strip_scenario, assemble
 from .supernodal.compressed import CompressedSupernodalStructure
 from .supernodal.solver import SupernodalStructure
@@ -419,13 +420,8 @@ class Program:
         return struct
 
     def _default_config(self, config: Optional[SolverConfig]) -> SolverConfig:
-        if config is None:
-            config = SolverConfig()
-        if self._eq_blocks and config.kkt_solver == KKT_SOLVER_LLT:
-            # Equality duals make the KKT matrix indefinite; the reference
-            # forces the LDLT path (kkt_solver.cc:180-187).
-            config = config.replace(kkt_solver=KKT_SOLVER_LDLT)
-        return config
+        return indefinite_mode(SolverConfig() if config is None else config,
+                               self._eq_blocks)
 
     @entry()
     def solve(self, b, config: Optional[SolverConfig] = None) -> Result:

@@ -30,7 +30,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..config import KKT_SOLVER_LDLT, KKT_SOLVER_LLT, KKT_SOLVER_QR
-from ..utils.profiling import spanned
+from ..utils.profiling import counters, span, spanned
 
 # Pivot clamp magnitude (reference RLDLT.h:261-263, 310-318).
 LDLT_PIVOT_CLAMP = 1e-9
@@ -79,6 +79,15 @@ def _clamp_pivot(d):
                        torch.where(d >= 0, clamp, -clamp), d)
 
 
+def indefinite_mode(config, eq_blocks):
+    """``config`` with KKT_SOLVER_LDLT where equality blocks come with
+    KKT_SOLVER_LLT: their duals make the KKT matrix indefinite, and the
+    reference forces the LDLT path (kkt_solver.cc:180-187)."""
+    if eq_blocks and config.kkt_solver == KKT_SOLVER_LLT:
+        return config.replace(kkt_solver=KKT_SOLVER_LDLT)
+    return config
+
+
 def _factor_columns(M, lo, hi):
     """Right-looking fixed-order LDLT steps j = lo .. hi-1 on M (S, n, n),
     in place, updating only rows and columns below hi: the scalar loop of
@@ -88,6 +97,7 @@ def _factor_columns(M, lo, hi):
     the L column, the trailing square loses d * l l^T, and the clamped
     pivot lands on the diagonal.  The entries above the diagonal keep
     stale intermediates, as in the JAX package."""
+    counters["kkt.ldlt.columns"] += hi - lo
     for j in range(lo, hi):
         d = _clamp_pivot(M[:, j, j])
         l_col = M[:, j + 1:hi, j] / d[:, None]
@@ -101,15 +111,22 @@ def _factor_columns(M, lo, hi):
         M[:, j, j] = d
 
 
-def _ldlt_scalar(K):
-    """Fixed-order LDLT with pivot clamping of the (S, n, n) K: M holds the
-    unit-lower L strictly below the diagonal and d on it.  reference:
-    RLDLT.h:381-393; JAX ``_ldlt_scalar``."""
+def _unblocked(K):
     M = K.clone()
     _factor_columns(M, 0, M.shape[-1])
     return M, ~torch.isfinite(M).all(dim=(-2, -1))
 
 
+@spanned("conex.ldlt")
+def _ldlt_scalar(K):
+    """Fixed-order LDLT with pivot clamping of the (S, n, n) K: M holds the
+    unit-lower L strictly below the diagonal and d on it.  reference:
+    RLDLT.h:381-393; JAX ``_ldlt_scalar``."""
+    counters["kkt.ldlt.calls"] += 1
+    return _unblocked(K)
+
+
+@spanned("conex.ldlt")
 def _ldlt_clamped(K, panel: int = LDLT_PANEL):
     """Blocked right-looking fixed-order LDLT with the +/-1e-9 clamp.
 
@@ -122,24 +139,31 @@ def _ldlt_clamped(K, panel: int = LDLT_PANEL):
     with an identity; the port's last panel is narrower instead, which
     changes no entry of the factor (LDLT(blockdiag(K, I)) =
     blockdiag(LDLT(K), I)).
+
+    The whole factor runs inside the span ``conex.ldlt``, each panel's
+    solve and trailing update inside ``conex.ldlt.update``; the counter
+    ``kkt.ldlt.calls`` counts the factors, ``kkt.ldlt.columns`` the
+    columns the scalar steps take.
     """
+    counters["kkt.ldlt.calls"] += 1
     n = K.shape[-1]
     if n <= panel:
-        return _ldlt_scalar(K)
+        return _unblocked(K)
     M = K.clone()
     for j0 in range(0, n, panel):
         j1 = min(j0 + panel, n)
         _factor_columns(M, j0, j1)
         if j1 == n:
             break
-        L11 = torch.tril(M[:, j0:j1, j0:j1], -1)
-        d = torch.diagonal(M[:, j0:j1, j0:j1], dim1=-2, dim2=-1)
-        X = torch.linalg.solve_triangular(
-            L11, M[:, j1:, j0:j1].transpose(-2, -1), upper=False,
-            unitriangular=True).transpose(-2, -1)
-        L21 = X / d[:, None, :]
-        M[:, j1:, j0:j1] = L21
-        M[:, j1:, j1:] -= (L21 * d[:, None, :]) @ L21.transpose(-2, -1)
+        with span("conex.ldlt.update"):
+            L11 = torch.tril(M[:, j0:j1, j0:j1], -1)
+            d = torch.diagonal(M[:, j0:j1, j0:j1], dim1=-2, dim2=-1)
+            X = torch.linalg.solve_triangular(
+                L11, M[:, j1:, j0:j1].transpose(-2, -1), upper=False,
+                unitriangular=True).transpose(-2, -1)
+            L21 = X / d[:, None, :]
+            M[:, j1:, j0:j1] = L21
+            M[:, j1:, j1:] -= (L21 * d[:, None, :]) @ L21.transpose(-2, -1)
     return M, ~torch.isfinite(M).all(dim=(-2, -1))
 
 

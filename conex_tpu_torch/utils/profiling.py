@@ -20,14 +20,19 @@ The port's own instruments:
   calls of the kernels K1 and K2; ``sym.warm.calls``,
   ``sym.warm.captures`` and ``sym.warm.replays``, the warm eigenvalue
   estimates on the card and the CUDA graphs captured and replayed for
-  them (algebra/sym.py).
+  them (algebra/sym.py); ``kkt.ldlt.calls`` and ``kkt.ldlt.columns``, the
+  clamped LDLT factors and the columns their scalar steps take
+  (solver/kkt.py).
 
 The spans, by layer: ``conex.call/<n>``, ``conex.program.add``,
 ``conex.program.copy_out``, ``conex.program.dual`` (front end);
 ``conex.solve``, ``conex.pass``, ``conex.mu``, ``conex.select``,
 ``conex.epilogue`` (solve loop); ``conex.assemble``, ``conex.schur``,
-``conex.factor``, ``conex.kkt_solve`` (KKT); ``conex.prepare_step``,
-``conex.take_step``, ``conex.slack_stats``, ``conex.line_search`` (cone).
+``conex.factor``, ``conex.ldlt`` (the clamped LDLT, inside
+``conex.factor``), ``conex.ldlt.update`` (a panel's solve and trailing
+update, inside ``conex.ldlt``), ``conex.kkt_solve`` (KKT);
+``conex.prepare_step``, ``conex.take_step``, ``conex.slack_stats``,
+``conex.line_search`` (cone).
 
 Twin of ``conex_tpu/utils/profiling.py`` besides: the counterpart of the
 reference's compile-time macro timers (CONEX_ENABLE_TIMER,
