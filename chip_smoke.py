@@ -161,6 +161,18 @@ Phases, each printing its own lines; any failure exits non-zero:
    graphed and eager: y, num_iterations and solved equal to the bit;
    every warm estimate of the graphed solves replays a graph; the times
    and launch calls of both;
+4j. the clamped LDLT's column steps as csrc/ldlt.cu's kernel against the
+   plain torch loop (solver/kkt.py::_factor_columns_plain) on the card,
+   to the bit (all of M and the fail flags), in f64 and f32: the
+   benchmark's 64 portfolio KKT matrices of order 1,021 through
+   _ldlt_clamped, a random n = 300 batch through it, and 8 random
+   symmetric matrices at widths 1, 7, 50, 125, 128 and 300 through
+   _ldlt_scalar with planted pivots (0, +5e-10, -5e-10, NaN); how torch's
+   addcmul_ rounds there; the kernel's time a panel and a factor at the
+   cell's shape beside the bound and the plain loop's; one qp_b64 batch
+   through solve_scenarios with the kernel and the plain loop: y,
+   num_iterations and solved equal to the bit, every column step of the
+   kernel's solves through the kernel;
 5. a known answer: a small f64 SDP through Program(device="cuda"), against
    lambda_min(C) and the CPU solve;
 5b. a known SOC answer through Program(device="cuda"): max b'y s.t.
@@ -230,6 +242,9 @@ import subprocess
 import sys
 import time
 
+LDLT_SOURCE = "conex_tpu_torch/csrc/ldlt.cu"
+# No TPU kernel: the JAX package's panel_factor and _ldlt_scalar loops.
+LDLT_REPLACES = "none (conex_tpu/solver/kkt.py:124, :53, XLA loops)"
 SCHUR_SOURCE = "conex_tpu_torch/csrc/schur.cu"
 SCHUR_REPLACES = "conex_tpu/cones/psd_pallas.py:48"
 FUSED_SOURCE = "conex_tpu_torch/csrc/fused_socp.cu"
@@ -391,8 +406,9 @@ TF32_FLOPS = 495e12
 F64_TENSOR_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 LIBRARY_NOTE = ("library_ms is null for every kernel: no single PyTorch call "
-                "computes the five Schur outputs (K1, K3-K6) or the SOCP "
-                "solve (K2)")
+                "computes the five Schur outputs (K1, K3-K6), the SOCP "
+                "solve (K2) or the clamped LDLT's unpivoted steps "
+                "(torch.linalg.ldl_factor pivots)")
 SOCP_SIZES = (1_000, 10_000, 100_000)
 SOCP_FLAGS = ("num_iterations", "solved", "fail", "primal_infeasible",
               "dual_infeasible", "mu_stalled", "warmstart_aborted")
@@ -3754,6 +3770,262 @@ def phase_warm_graph(device):
     log(f"[4i warm graph] ok in {time.perf_counter() - start:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# The clamped LDLT's column steps as one CUDA kernel per panel (phase 4j)
+# ---------------------------------------------------------------------------
+
+LDLT_WIDTHS = (1, 7, 50, 125, 128, 300)  # through _ldlt_scalar, 8 programs each
+LDLT_PLANTED = (0.0, 5e-10, -5e-10, float("nan"))  # pivots of programs 0-3
+LDLT_REPS = 20  # CUDA-event timing
+
+
+def same_bits(got, want):
+    """Equal to the bit, NaN where NaN (any payload), and of one dtype."""
+    import torch
+
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    nan = got.isnan()
+    if not torch.equal(nan, want.isnan()):
+        return False
+    bits = {torch.float64: torch.int64, torch.float32: torch.int32}[got.dtype]
+    return torch.equal(got.masked_fill(nan, 0).view(bits), want.masked_fill(nan, 0).view(bits))
+
+
+@contextlib.contextmanager
+def plain_ldlt_columns():
+    """The LDLT's column steps as the plain torch loop, on the card too."""
+    from conex_tpu_torch.solver import kkt
+
+    kernel = kkt._factor_columns
+    kkt._factor_columns = kkt._factor_columns_plain
+    try:
+        yield
+    finally:
+        kkt._factor_columns = kernel
+
+
+def ldlt_random(S, n, seed, dtype, device, planted=True):
+    """S symmetric indefinite (n, n) matrices, X + X^T with X N(0, 1) plus
+    +-n on the diagonal (signs at random); with ``planted``, program s < 4
+    holds LDLT_PLANTED[s] as the pivot of column p = (s + 1) n // 5
+    (clipped to n - 1), its row and column otherwise zero, so the pivot
+    reaches its step as planted, and program 4 the first pivot -5e-10
+    beside its column as drawn."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    kw = dict(generator=g, dtype=torch.float64, device=device)
+    X = torch.randn(S, n, n, **kw)
+    signs = torch.where(torch.rand(S, n, **kw) < 0.5, -1.0, 1.0)
+    K = X + X.transpose(-2, -1) + torch.diag_embed(n * signs)
+    if planted:
+        for s, value in enumerate(LDLT_PLANTED[:S]):
+            p = min(n - 1, (s + 1) * n // 5)
+            K[s, p, :] = 0.0
+            K[s, :, p] = 0.0
+            K[s, p, p] = value
+        if S > len(LDLT_PLANTED):
+            K[len(LDLT_PLANTED), 0, 0] = -5e-10  # clamped, its column kept
+    return K.to(dtype).contiguous()
+
+
+def portfolio_kkt(device):
+    """64 KKT matrices of order 1,021 of the benchmark's osqp_portfolio_k10
+    programs (batch 0, programs_seed 0), at box iterates w drawn
+    log-uniform on [1e-4, 1e4], as the reference assembles them."""
+    import torch
+
+    from portbench import spec
+    from portbench.problems import osqp_portfolio
+    from portbench.reference import portfolio_qp as plain
+
+    config = spec.load_config("osqp_portfolio_k10")
+    traffic = spec.load_traffic("qp_b64")
+    F, D, _, _ = osqp_portfolio.make(config, traffic["programs_seed"], 0, traffic["batch"],
+                                     torch.float64, device)
+    g = torch.Generator(device=device).manual_seed(23)
+    w = 10.0 ** (8 * torch.rand(F.shape[0], 2 * F.shape[1], generator=g,
+                                dtype=torch.float64, device=device) - 4)
+    return plain.assemble_plain(F, D, w).contiguous()
+
+
+def addcmul_rounding(device, dtype):
+    """How torch's addcmul_(p, d, value=-1) rounds m - p d on the card: the
+    share of 4,096 entries equal to the twice-rounded m - (p d), and to the
+    once-rounded fma(-p, d, m) (exact rationals on the host)."""
+    from fractions import Fraction
+
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(5)
+    m, p, d = (torch.randn(4096, generator=g, dtype=torch.float64, device=device).to(dtype)
+               for _ in range(3))
+    got = m.clone().addcmul_(p, d, value=-1)
+    twice = m - p * d
+    fused = torch.tensor([float(Fraction(float(a)) - Fraction(float(b)) * Fraction(float(c)))
+                          for a, b, c in zip(m.tolist(), p.tolist(), d.tolist())],
+                         dtype=torch.float64).to(dtype).to(device)
+    return (float((got == twice).double().mean()), float((got == fused).double().mean()))
+
+
+def time_fresh_ms(fn, reset, reps):
+    """CUDA-event time of ``fn`` averaged over ``reps`` calls, each on the
+    inputs ``reset`` restores before it (untimed)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for rep in range(reps + 1):
+        reset()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        if rep:  # the first call warms up
+            total += start.elapsed_time(end)
+    return total / reps
+
+
+def phase_ldlt_panel(device):
+    """4j: csrc/ldlt.cu's kernel against the plain column loop on the card,
+    to the bit (all of M and the fail flags): the cell's 64 portfolio KKT
+    matrices of order 1,021 through _ldlt_clamped, and 8 random symmetric
+    matrices at LDLT_WIDTHS through _ldlt_scalar with planted pivots (0,
+    +-5e-10, NaN), in f64 and f32; the kernel's time a panel at the cell's
+    shape beside its bound and the plain loop's; then one qp_b64 batch
+    through solve_scenarios with the kernel and with the plain loop: y,
+    num_iterations and solved equal to the bit.  Returns the kernel's
+    record for the closing JSON line."""
+    import torch
+
+    from conex_tpu_torch.solver import kkt
+    from conex_tpu_torch.utils.profiling import counters
+    from portbench import drivers, spec
+    from portbench.workload import dtype_of
+
+    start = time.perf_counter()
+    card = card_name_and_power_limit()
+    log(f"[4j ldlt panel] {card}")
+    for dtype in (torch.float64, torch.float32):
+        twice, fused = addcmul_rounding(device, dtype)
+        log(f"[4j ldlt panel] torch addcmul_ on the card, {dtype}: equal to m - (p d) "
+            f"rounded twice {twice:.4f}, to fma(-p, d, m) {fused:.4f}")
+
+    def check(label, fn, K):
+        before = dict(counters)
+        got, got_fail = fn(K)
+        moved = {k: counters[k] - before.get(k, 0)
+                 for k in ("kkt.ldlt.columns", "kkt.ldlt.kernel_columns",
+                           "kkt.ldlt.panel_launches")}
+        with plain_ldlt_columns():
+            want, want_fail = fn(K)
+        torch.cuda.synchronize()
+        equal = same_bits(got, want) and torch.equal(got_fail, want_fail)
+        # |got - want|, 0 where both are NaN, inf where only one is.
+        diff = (got - want).abs().double()
+        diff = torch.where(got.isnan() & want.isnan(), 0.0, diff.nan_to_num(nan=float("inf")))
+        max_abs = float(diff.max())
+        log(f"[4j ldlt panel] {label}: K {tuple(K.shape)} {K.dtype}; equal to the bit "
+            f"{equal}; largest |kernel - plain| {max_abs!r}; fail flags "
+            f"{int(got_fail.sum())} of {got_fail.numel()}; counters {moved}")
+        if not equal:
+            log(f"[4j ldlt panel] {label}: {int((diff != 0).sum())} entries differ")
+            fail(f"4j {label}: the kernel's factor differs from the plain loop's")
+        if moved["kkt.ldlt.kernel_columns"] != moved["kkt.ldlt.columns"] or not moved[
+                "kkt.ldlt.panel_launches"]:
+            fail(f"4j {label}: a column step did not go through the kernel: {moved}")
+        return max_abs
+
+    cell = portfolio_kkt(device)
+    # The closing line's max_abs_err: the cell-shape factor in its own f64.
+    max_abs = check("cell, _ldlt_clamped", kkt._ldlt_clamped, cell)
+    for dtype in (torch.float64, torch.float32):
+        if dtype != cell.dtype:
+            check("cell, _ldlt_clamped", kkt._ldlt_clamped, cell.to(dtype))
+        check("random n = 300, _ldlt_clamped", kkt._ldlt_clamped,
+              ldlt_random(8, 300, 3, dtype, device))
+        for n in LDLT_WIDTHS:
+            check(f"n = {n}, _ldlt_scalar", kkt._ldlt_scalar,
+                  ldlt_random(8, n, n, dtype, device))
+
+    # Time a full panel (the first) and the whole factor at the cell's shape.
+    S, N = cell.shape[0], cell.shape[-1]
+    w = kkt.LDLT_PANEL
+    M = cell.clone()
+    square = (slice(None), slice(0, w), slice(0, w))
+
+    def reset():
+        M[square] = cell[square]
+
+    panel_ms = time_fresh_ms(lambda: kkt._factor_columns_kernel(M, 0, w), reset, LDLT_REPS)
+    dense = ldlt_random(S, w, 7, torch.float64, device, planted=False)
+    D = dense.clone()
+    dense_ms = time_fresh_ms(lambda: kkt._factor_columns_kernel(D, 0, w),
+                             lambda: D.copy_(dense), LDLT_REPS)
+    plain_panel_ms = time_fresh_ms(lambda: kkt._factor_columns_plain(M, 0, w), reset, 3)
+    factor_ms = time_ms(lambda: kkt._ldlt_clamped(cell), LDLT_REPS)
+    with plain_ldlt_columns():
+        plain_factor_ms = time_ms(lambda: kkt._ldlt_clamped(cell), 3)
+    factor_device_ms, factor_launches, top = device_profile(lambda: kkt._ldlt_clamped(cell))
+    log("[4j ldlt panel] one factor's device kernels: " + "; ".join(
+        f"{name[:60]} {ms:.4f} ms x {count}" for ms, count, name in top[:6]))
+    panel_bound = bound(S * w**3 // 3, 2 * S * w * w * 8, F64_TENSOR_FLOPS)
+    factor_bound = bound(S * N**3 // 3, 2 * S * N * N * 8, F64_TENSOR_FLOPS)
+    log(f"[4j ldlt panel] cell shape S = {S}, N = {N}, f64: kernel {panel_ms:.4f} ms a "
+        f"panel of {w} (bound {panel_bound['bound_ms']:.5f} ms by "
+        f"{panel_bound['bound_by']}), plain loop {plain_panel_ms:.4f} ms; "
+        f"{dense_ms:.4f} ms on a dense random square of {w}; factor "
+        f"{factor_ms:.4f} ms with the kernel ({factor_device_ms:.4f} ms of device "
+        f"kernels traced), {factor_launches} launch calls (bound "
+        f"{factor_bound['bound_ms']:.4f} ms), {plain_factor_ms:.4f} ms with the plain loop; "
+        f"{card}")
+
+    config = spec.load_config("osqp_portfolio_k10")
+    traffic = dict(spec.load_traffic("qp_b64"), pool=1)
+    driver = drivers.make(config, traffic, device, dtype_of(config["dtype"]))
+    runs = {}
+    for label in ("kernel", "plain", "kernel again"):
+        # The closing line's launches: the main path's own "kernel" solve.
+        counters["kkt.ldlt.panel_launches"] = 0
+        before = dict(counters)
+        t0 = time.perf_counter()
+        if label == "plain":
+            with plain_ldlt_columns():
+                _, res = driver.call(0)
+        else:
+            _, res = driver.call(0)
+        wall = time.perf_counter() - t0
+        moved = {k: counters[k] - before.get(k, 0)
+                 for k in ("kkt.ldlt.calls", "kkt.ldlt.columns", "kkt.ldlt.kernel_columns",
+                           "kkt.ldlt.panel_launches")}
+        runs[label] = res
+        if label == "kernel":
+            launches = moved["kkt.ldlt.panel_launches"]
+        log(f"[4j ldlt panel] qp_b64 {label}: {wall:.3f} s, max iterations "
+            f"{int(res.num_iterations.max())}, mean "
+            f"{float(res.num_iterations.double().mean()):.4f}, solved "
+            f"{int(res.solved.sum())} of {res.solved.numel()}; counters {moved}")
+        kernel_columns = moved["kkt.ldlt.kernel_columns"]
+        if label == "plain" and kernel_columns:
+            fail("4j qp_b64 plain: the kernel ran")
+        if label != "plain" and (not kernel_columns or kernel_columns != moved["kkt.ldlt.columns"]):
+            fail(f"4j qp_b64 {label}: not every column step went through the kernel: {moved}")
+    want = runs["plain"]
+    for label in ("kernel", "kernel again"):
+        got = runs[label]
+        same = {f: torch.equal(getattr(got, f), getattr(want, f))
+                for f in ("y", "num_iterations", "solved")}
+        log(f"[4j ldlt panel] qp_b64 {label} against plain, equal to the bit: {same}")
+        if not all(same.values()):
+            fail(f"4j qp_b64: the {label} solve differs from the plain one: {same}")
+    del driver, runs, want, cell, M
+    torch.cuda.empty_cache()
+    log(f"[4j ldlt panel] ok in {time.perf_counter() - start:.1f} s")
+    return dict(launches=launches, max_abs_err=max_abs, ms=panel_ms, plain_ms=plain_panel_ms, **panel_bound)
+
+
 def phase_probe_entry_points():
     """The two probe harnesses on the card; returns each variant's kernel
     launches in this phase."""
@@ -3849,6 +4121,7 @@ def main():
     schur["path_launches"]["4g"] = phase_sparse(device)
     schur["path_launches"]["4h"] = phase_sharded(device)
     phase_warm_graph(device)
+    ldlt = phase_ldlt_panel(device)
     phase_known_answer(device)
     phase_soc_known_answer(device)
     phase_lp_known_answer(device)
@@ -3865,7 +4138,9 @@ def main():
              replaces=FUSED_REPLACES, library_ms=None, **fused),
     ] + [dict(name=name, route="cuda", source=source, replaces=replaces,
               library_ms=None, **probes[name])
-         for name, _, replaces, source in PROBES]
+         for name, _, replaces, source in PROBES] + [
+        dict(name="ldlt_panel", route="cuda", source=LDLT_SOURCE,
+             replaces=LDLT_REPLACES, library_ms=None, **ldlt)]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "plan",
             "path_launches")

@@ -25,7 +25,7 @@ from typing import NamedTuple, Optional
 
 _PKG = Path(__file__).resolve().parent
 SOURCES = tuple(_PKG / "csrc" / name for name in
-                ("schur.cu", "fused_socp.cu", "schur_probes.cu"))
+                ("schur.cu", "fused_socp.cu", "schur_probes.cu", "ldlt.cu"))
 # Included by schur.cu and schur_probes.cu.
 HEADERS = (_PKG / "csrc" / "mma.cuh",)
 # Compilation units: (source, extra flags, object tag).  fused_socp.cu is
@@ -36,6 +36,7 @@ UNITS = (
     (SOURCES[1], ("-DCONEX_SOCP_PART=1",), "fused_socp_f32"),
     (SOURCES[1], ("-DCONEX_SOCP_PART=2",), "fused_socp_f64"),
     (SOURCES[2], (), "schur_probes"),
+    (SOURCES[3], (), "ldlt"),
 )
 BUILD_DIR = _PKG / "_build"
 # No --use_fast_math: the kernels keep IEEE sqrt, exp and division.  No FMA
@@ -62,6 +63,9 @@ _SOCP_ARGTYPES = [_P] * 23 + [_I] * 4 + [_P] * 4
 # n, Q, D, SC, route, opb, stream): K4 and K5
 _PROBE_AT_ARGTYPES = [_P] * 11 + [_I] * 8 + [_P]
 _PROBE_AT_NAMES = ("conex_probe_at_f32", "conex_probe_at_f64")
+# conex_ldlt_panel_f{32,64}(M, S, N, lo, hi, stream): the clamped LDLT's
+# scalar steps on one square
+_LDLT_ARGTYPES = [_P] + [_I] * 4 + [_P]
 
 
 class Build(NamedTuple):
@@ -119,6 +123,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         (("conex_schur_f32", "conex_schur_f64"), _SCHUR_ARGTYPES),
         (("conex_socp_fused_f32", "conex_socp_fused_f64"), _SOCP_ARGTYPES),
         (_PROBE_AT_NAMES, _PROBE_AT_ARGTYPES),
+        (("conex_ldlt_panel_f32", "conex_ldlt_panel_f64"), _LDLT_ARGTYPES),
     ):
         for name in names:
             fn = getattr(lib, name)

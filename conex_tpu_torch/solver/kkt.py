@@ -90,8 +90,25 @@ def indefinite_mode(config, eq_blocks):
 
 def _factor_columns(M, lo, hi):
     """Right-looking fixed-order LDLT steps j = lo .. hi-1 on M (S, n, n),
+    in place: csrc/ldlt.cu's kernel for a CUDA tensor (one launch, or the
+    call raises), ``_factor_columns_plain`` for a CPU tensor.  On the card
+    the kernel gives the plain loop's bits there (m - (p d), each operation
+    rounded), and so the bits of the loop before the kernel; the CPU loop
+    rounds the update once (one fused multiply-add), so the two devices
+    may differ in the last bits."""
+    if M.device.type == "cuda":
+        _factor_columns_kernel(M, lo, hi)
+    elif M.device.type == "cpu":
+        _factor_columns_plain(M, lo, hi)
+    else:
+        raise ValueError(f"no LDLT column steps for device {M.device}")
+
+
+def _factor_columns_plain(M, lo, hi):
+    """Right-looking fixed-order LDLT steps j = lo .. hi-1 on M (S, n, n),
     in place, updating only rows and columns below hi: the scalar loop of
-    the JAX package (``_ldlt_scalar``, ``panel_factor``) on a square.
+    the JAX package (``_ldlt_scalar``, ``panel_factor``) on a square, in
+    torch ops on either device.
 
     Column j is read as it stands (no symmetrization): M[j+1:, j] / d is
     the L column, the trailing square loses d * l l^T, and the clamped
@@ -101,18 +118,51 @@ def _factor_columns(M, lo, hi):
     for j in range(lo, hi):
         d = _clamp_pivot(M[:, j, j])
         l_col = M[:, j + 1:hi, j] / d[:, None]
-        # M - d * (l l^T) as one fused multiply-add per entry, as XLA
-        # computes the JAX package's update: a separate product and
-        # subtraction round twice, and an unpivoted factor amplifies that
-        # (1e-7 apart at n = 130 on a random symmetric K).
+        # M - d * (l l^T) by addcmul_: on the CPU (torch's vectorized
+        # kernel) one fused multiply-add per entry, as XLA computes the JAX
+        # package's update (a separate product and subtraction round
+        # twice, and an unpivoted factor amplifies that: 1e-7 apart at
+        # n = 130 on a random symmetric K); on the card M - (l l^T) d with
+        # each operation rounded, which csrc/ldlt.cu repeats.
         M[:, j + 1:hi, j + 1:hi].addcmul_(
             l_col[:, :, None] * l_col[:, None, :], d[:, None, None], value=-1)
         M[:, j + 1:hi, j] = l_col
         M[:, j, j] = d
 
 
+def _factor_columns_kernel(M, lo, hi):
+    """``_factor_columns_plain`` on a contiguous (S, n, n) CUDA tensor of
+    float32 or float64 as one launch of csrc/ldlt.cu's kernel; raises on
+    anything else before it launches.  Counts the columns in
+    ``kkt.ldlt.columns`` and ``kkt.ldlt.kernel_columns``, the launch in
+    ``kkt.ldlt.panel_launches``."""
+    if M.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the LDLT kernel takes float32 or float64, not {M.dtype}")
+    if M.dim() != 3 or M.shape[-1] != M.shape[-2]:
+        raise ValueError(f"M must be (S, n, n), got {tuple(M.shape)}")
+    if not M.is_contiguous():
+        raise ValueError("the LDLT kernel takes a contiguous M")
+    n = M.shape[-1]
+    if not 0 <= lo < hi <= n:
+        raise ValueError(f"columns [{lo}, {hi}) are not a square of an order-{n} M")
+    if M.device.type != "cuda":
+        raise ValueError(f"the LDLT kernel takes a CUDA tensor, not one on {M.device}")
+    from .._build import build
+
+    lib = build().lib
+    fn = lib.conex_ldlt_panel_f64 if M.dtype == torch.float64 else lib.conex_ldlt_panel_f32
+    with torch.cuda.device(M.device):
+        stream = torch.cuda.current_stream(M.device).cuda_stream
+        err = fn(M.data_ptr(), M.shape[0], n, lo, hi, stream)
+    if err != 0:
+        raise RuntimeError(f"LDLT kernel launch failed: cudaError {err}")
+    counters["kkt.ldlt.columns"] += hi - lo
+    counters["kkt.ldlt.kernel_columns"] += hi - lo
+    counters["kkt.ldlt.panel_launches"] += 1
+
+
 def _unblocked(K):
-    M = K.clone()
+    M = K.clone(memory_format=torch.contiguous_format)
     _factor_columns(M, 0, M.shape[-1])
     return M, ~torch.isfinite(M).all(dim=(-2, -1))
 
@@ -143,13 +193,14 @@ def _ldlt_clamped(K, panel: int = LDLT_PANEL):
     The whole factor runs inside the span ``conex.ldlt``, each panel's
     solve and trailing update inside ``conex.ldlt.update``; the counter
     ``kkt.ldlt.calls`` counts the factors, ``kkt.ldlt.columns`` the
-    columns the scalar steps take.
+    columns the scalar steps take (``_factor_columns``: on the card one
+    kernel launch per panel).
     """
     counters["kkt.ldlt.calls"] += 1
     n = K.shape[-1]
     if n <= panel:
         return _unblocked(K)
-    M = K.clone()
+    M = K.clone(memory_format=torch.contiguous_format)
     for j0 in range(0, n, panel):
         j1 = min(j0 + panel, n)
         _factor_columns(M, j0, j1)

@@ -21,7 +21,9 @@ The port's own instruments:
   ``sym.warm.captures`` and ``sym.warm.replays``, the warm eigenvalue
   estimates on the card and the CUDA graphs captured and replayed for
   them (algebra/sym.py); ``kkt.ldlt.calls`` and ``kkt.ldlt.columns``, the
-  clamped LDLT factors and the columns their scalar steps take
+  clamped LDLT factors and the columns their scalar steps take on either
+  device, ``kkt.ldlt.kernel_columns`` and ``kkt.ldlt.panel_launches``,
+  the columns csrc/ldlt.cu's kernel took on the card and its launches
   (solver/kkt.py).
 
 The spans, by layer: ``conex.call/<n>``, ``conex.program.add``,
