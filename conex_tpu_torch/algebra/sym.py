@@ -236,6 +236,39 @@ def extreme_eigenvalues_warm(M, vhi, uhi, vlo, ulo, lam_prev,
     return _replay(key, inputs, num_steps)
 
 
+def extreme_eigenvalues_cold_or_warm(M, carried):
+    """(lam_lo, lam_hi, seeds, lam) of M (S, ..., n, n): per scenario, the
+    cold estimator where all of the carried ``lam`` is 0 (identity
+    initialization, warmstart aborts), else the warm one from the carried
+    seeds ``vhi``, ``uhi``, ``vlo``, ``ulo`` (a PSDState or HermState).
+
+    The JAX package picks one with a ``lax.cond`` on ``max|lam| == 0``,
+    which vmap makes a choice per scenario.  Here the cold estimator runs
+    only when some scenario is cold (one host read, ``sync.cone.cold``)
+    and a select picks per scenario.  The warm step count grows with the
+    order, as in the JAX package (n = 300 needs more than 16 steps)."""
+    lam = carried.lam
+    is_cold = torch.amax(torch.abs(lam), dim=tuple(range(1, lam.dim()))) == 0.0
+    counters["sync.cone.cold"] += 1
+    n_cold = int(is_cold.sum())
+    cold = extreme_eigenvalues_seeded(M) if n_cold else None
+    if n_cold == is_cold.shape[0]:
+        return cold
+    warm = extreme_eigenvalues_warm(
+        M, carried.vhi, carried.uhi, carried.vlo, carried.ulo, lam,
+        num_steps=max(16, min(64, M.shape[-1] // 6)),
+    )
+    if cold is None:
+        return warm
+
+    def pick(c, w):
+        if isinstance(c, tuple):
+            return tuple(pick(x, y) for x, y in zip(c, w))
+        return torch.where(is_cold.reshape((-1,) + (1,) * (c.dim() - 1)), c, w)
+
+    return pick(cold, warm)
+
+
 # At most this many captured estimators are kept; each holds its static
 # buffers and a private memory pool (from the shapes, about 50 MB at 256
 # cones of n = 100: M twice in f64 and once in f32).

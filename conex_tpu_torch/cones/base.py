@@ -79,7 +79,10 @@ def per_scenario(x, ndim):
 
 def tree_select(mask, a, b):
     """Per-scenario select over matching (nested) tuples of (S, ...)
-    tensors: ``a`` where ``mask`` (S,) is True, else ``b``."""
+    tensors: ``a`` where ``mask`` (S,) is True, else ``b``.  A leaf or
+    subtree that is one object on both sides is returned as it is."""
+    if a is b:
+        return a
     if isinstance(a, tuple):
         out = [tree_select(mask, x, y) for x, y in zip(a, b)]
         return type(a)(*out) if hasattr(a, "_fields") else tuple(out)

@@ -26,8 +26,7 @@ import torch
 
 from ..algebra import hypercomplex as hc
 from ..algebra import sym
-from ..utils.profiling import counters
-from .base import SchurOut, SlackStats, per_scenario, tree_select
+from .base import SchurOut, SlackStats, per_scenario
 
 # Benchmark switch: force the cold squaring estimator on every iteration,
 # to measure what the warm seeds buy.  Read at each call.
@@ -68,6 +67,16 @@ def _trace0(X):
     """sum_b tr(X_b[0]) per scenario: the real part's trace, for
     (S, B, d, n, n) tensors."""
     return torch.diagonal(X[:, :, 0], dim1=-2, dim2=-1).sum(dim=(1, 2))
+
+
+def _spectrum(WS, state: HermState):
+    """(lo, hi, seeds, lam) spectrum extremes of WS via the real
+    representation R(WS) (eigenvalues appear with multiplicity d), cold or
+    warm per scenario (algebra/sym.py); all cold under FORCE_COLD."""
+    R = hc.real_representation(WS)
+    if FORCE_COLD:
+        return sym.extreme_eigenvalues_seeded(R)
+    return sym.extreme_eigenvalues_cold_or_warm(R, state)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,36 +155,6 @@ class HermitianCone:
             c_dot_Qc=torch.einsum("sbdij,sbdij->s", self.C, WCW),
         )
 
-    def _extreme_eigs(self, WS, state: HermState):
-        """(lo, hi, seeds, lam) spectrum extremes of WS via the real
-        representation R(WS) (eigenvalues appear with multiplicity d).
-
-        The JAX package picks the cold squaring estimator or the warm power
-        iteration with a ``lax.cond`` on ``max|lam| == 0``, which vmap makes
-        a choice per scenario.  Here it is a per-scenario select, and the
-        cold estimator runs only when some scenario is cold (one host sync
-        to find out), as in cones/psd.py."""
-        R = hc.real_representation(WS)
-        if FORCE_COLD:
-            return sym.extreme_eigenvalues_seeded(R)
-        is_cold = torch.amax(torch.abs(state.lam), dim=(1, 2)) == 0.0  # (S,)
-        counters["sync.cone.cold"] += 1
-        n_cold = int(is_cold.sum())
-        cold = sym.extreme_eigenvalues_seeded(R) if n_cold else None
-        if n_cold == is_cold.shape[0]:
-            return cold
-        # Step count scales with the real representation's order dn, as in
-        # the JAX package (clustered spectra at large order stall the mu
-        # progression at the fixed 16 steps).
-        steps = max(16, min(64, R.shape[-1] // 6))
-        warm = sym.extreme_eigenvalues_warm(
-            R, state.vhi, state.uhi, state.vlo, state.ulo, state.lam,
-            num_steps=steps,
-        )
-        if cold is None:
-            return warm
-        return tree_select(is_cold, cold, warm)
-
     def prepare_step(self, state, y, c_weight, e_weight):
         w = self._w(state)
         minus_s = self._minus_s(y, c_weight)
@@ -191,7 +170,7 @@ class HermitianCone:
 
         # reference: PrepareStep<T> (hermitian_psd.cc:33-71)
         WS = hc.multiply(w, minus_s)
-        lo, hi, seeds, lam = self._extreme_eigs(WS, state)
+        lo, hi, seeds, lam = _spectrum(WS, state)
         norminf = torch.amax(
             torch.maximum(torch.abs(e_weight + lo), torch.abs(e_weight + hi)),
             dim=1,
@@ -245,7 +224,7 @@ class HermitianCone:
                 trace=-torch.sum(tr_ws, dim=1),
             )
         WS = hc.multiply(w, minus_s)
-        lo, hi, _, _ = self._extreme_eigs(WS, state)
+        lo, hi, _, _ = _spectrum(WS, state)
         return SlackStats(
             lam_min=torch.amin(-hi, dim=1),
             lam_max=torch.amax(-lo, dim=1),

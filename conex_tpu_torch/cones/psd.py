@@ -19,8 +19,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..algebra import sym
-from ..utils.profiling import counters
-from .base import SchurOut, SlackStats, per_scenario, tree_select
+from .base import SchurOut, SlackStats, per_scenario
 from .psd_schur import schur_fused
 
 
@@ -99,38 +98,12 @@ class DenseLMICone:
         G, AW, AQc, w_dot_c, c_dot_Qc = schur_fused(self.A, state.w, self.C)
         return SchurOut(G=G, AW=AW, AQc=AQc, w_dot_c=w_dot_c, c_dot_Qc=c_dot_Qc)
 
-    def _extreme_eigs(self, WS, state: PSDState):
-        """(lam_lo, lam_hi, seeds, lam) of WS per cone.
-
-        The JAX package picks the cold squaring estimator or the warm power
-        iteration with a ``lax.cond`` on ``max|lam| == 0``; under vmap that
-        choice is made per scenario.  Here it is a per-scenario select, and
-        the cold estimator runs only when some scenario is cold (one host
-        sync to find out, counted as ``sync.cone.cold``).
-        """
-        is_cold = torch.amax(torch.abs(state.lam), dim=(1, 2)) == 0.0  # (S,)
-        counters["sync.cone.cold"] += 1
-        n_cold = int(is_cold.sum())
-        cold = sym.extreme_eigenvalues_seeded(WS) if n_cold else None
-        if n_cold == is_cold.shape[0]:
-            return cold
-        # Step count scales with the order, as in the JAX package (n=300
-        # instances need deeper power iteration than 16 steps).
-        steps = max(16, min(64, self.n // 6))
-        warm = sym.extreme_eigenvalues_warm(
-            WS, state.vhi, state.uhi, state.vlo, state.ulo, state.lam,
-            num_steps=steps,
-        )
-        if cold is None:
-            return warm
-        return tree_select(is_cold, cold, warm)
-
     def prepare_step(self, state: PSDState, y, c_weight, e_weight):
         # reference: PrepareStep (psd_constraint.cc:45-84)
         w = state.w
         minus_s = self._minus_s(y, c_weight)
         WS = w @ minus_s
-        lo, hi, seeds, lam = self._extreme_eigs(WS, state)
+        lo, hi, seeds, lam = sym.extreme_eigenvalues_cold_or_warm(WS, state)
         norminf = torch.amax(
             torch.maximum(torch.abs(e_weight + lo), torch.abs(e_weight + hi)),
             dim=1,
@@ -170,7 +143,7 @@ class DenseLMICone:
     def slack_stats(self, state: PSDState, y, c_weight) -> SlackStats:
         # reference: GetWeightedSlackEigenvalues (psd_constraint.cc:97-128)
         WS = state.w @ self._minus_s(y, c_weight)
-        lo, hi, _, _ = self._extreme_eigs(WS, state)
+        lo, hi, _, _ = sym.extreme_eigenvalues_cold_or_warm(WS, state)
         return SlackStats(
             lam_min=torch.amin(-hi, dim=1),
             lam_max=torch.amax(-lo, dim=1),

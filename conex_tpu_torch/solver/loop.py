@@ -397,7 +397,8 @@ def _solve_loop(blocks, eq_blocks, b, init_ws, init_scalars,
             | (s.i >= T - config.final_centering_steps)
         )
 
-    def run_iteration(s: LoopState) -> LoopState:
+    def run_iteration(s: LoopState):
+        """(advanced state, factor-fail state, (S,) factor-fail flags)."""
         i = s.i
         initial_centering = i < init_centering_steps
         final_centering = final_centering_of(s)
@@ -432,9 +433,9 @@ def _solve_loop(blocks, eq_blocks, b, init_ws, init_scalars,
         # --- Factor (cone_program.cc:359-371) ---
         fac = kkt.factor(G, mode, kkt_structure, group, island_dtype=island)
 
-        # Both sides of the factor-fail branch are computed and merged with
-        # per-scenario selects, as the JAX package does; values computed
-        # from a failed factor are discarded by the selects.
+        # Both sides of the factor-fail branch are computed and selected per
+        # scenario in ``body``, as the JAX package does; values computed
+        # from a failed factor are discarded by the select.
 
         # --- Factor ok ---
         AQc_s = AQc * c_scaling[:, None]
@@ -568,7 +569,7 @@ def _solve_loop(blocks, eq_blocks, b, init_ws, init_scalars,
             stats_err=_set_row(s.stats_err, i, kkt_error),
         )
 
-        # --- Merge with the factor-fail path (cone_program.cc:360-371).
+        # --- The factor-fail path (cone_program.cc:360-371).
         # On failure (coldstart, or warmstart past the first iteration)
         # the run aborts: done/fail set, everything else kept.  On a
         # first-iteration warmstart failure the warmstart is aborted and
@@ -592,28 +593,34 @@ def _solve_loop(blocks, eq_blocks, b, init_ws, init_scalars,
             c_scaling=c_scaling,
             k_max=k_max,
         )
-        return _merge(ffail, s_fail, sn)
+        return sn, s_fail, ffail
 
     @spanned("conex.pass")
     def body(s: LoopState) -> LoopState:
         # Break-before-assemble: final centering budget exhausted
         # (cone_program.cc:331-336).  The iteration is always computed; a
         # finished scenario (done, or centering budget spent) keeps its
-        # state through the selects, as under vmap.
+        # state through the select, as under vmap.
         stop_centering = final_centering_of(s) & (
             s.centering_steps >= config.final_centering_steps
         )
         if config.fixed_iterations:
             stop_centering = torch.zeros_like(stop_centering)
 
-        sn = run_iteration(s)
-        s_marked = s._replace(
-            done=torch.ones_like(s.done),
-            max_iters_reached=s.i >= T - 1,
-        )
-        merged = _merge(s.done | stop_centering, s_marked, sn)
-        # A scenario that was already done stays exactly as it was.
-        return _merge(s.done, s, merged)
+        sn, s_fail, ffail = run_iteration(s)
+        # A pass's outcome, by precedence: already done (s), centering budget
+        # spent (s marked done), factor failed (s_fail) or advanced (sn).  The
+        # first three are s with a few fields changed, and tree_select passes
+        # shared leaves through, so only the whole-state select is wide.
+        with span("conex.select"):
+            finished = s.done | stop_centering
+            s_marked = s._replace(
+                done=finished,
+                max_iters_reached=torch.where(
+                    stop_centering & ~s.done, s.i >= T - 1, s.max_iters_reached),
+            )
+            held = tree_select(ffail & ~finished, s_fail, s_marked)
+            return tree_select(finished | ffail, held, sn)
 
     def scalars(key):
         return init_scalars[key].to(dtype=dtype, device=device).reshape(S)

@@ -140,6 +140,18 @@ def test_warmstart_resolve_matches_jax():
     at iteration 0 comes from seeds of another problem, moves by ~1e-4
     relative with the rounding of its f32 sweep alone, and decides which
     branch of the mu update a later iteration takes.)"""
+    A, C, b2, ws, scalars = _warm_batch()
+    rj, rt = _run_both(A, C, b2, ws, scalars, max_iterations=30,
+                       initialization_mode=conex_tpu.WARMSTART)
+    assert rj.stats_dinf[1, 0] >= 2.0  # the abort
+    assert rj.num_iterations[0] < rj.num_iterations[1]
+    _assert_same_trajectory(rj, rt)
+
+
+def _warm_batch():
+    """(A, C, b2, ws, scalars): test_warmstart_resolve_matches_jax's batch,
+    warm-started from the JAX package's cold solve, scenario 0 with a 10%
+    larger b and scenario 1 with 5 b."""
     S, B, n, m = 4, 2, 6, 3
     A, C, b = _batch(1, S, B, n, m)
     cold = jsolve(
@@ -148,16 +160,51 @@ def test_warmstart_resolve_matches_jax():
         {k: jnp.asarray(v) for k, v in _cold_scalars(S).items()},
         JConfig(max_iterations=30, prepare_dual_variables=True),
     )
-    ws = [np.asarray(x) for x in cold.ws[0]]
+    ws = [np.asarray(x).copy() for x in cold.ws[0]]
     scalars = dict(k=np.zeros(S), b_scaling=np.asarray(cold.b_scaling),
                    c_scaling=np.asarray(cold.c_scaling))
     b2 = b.copy()
     b2[0] *= 1.1
     b2[1] *= 5.0
+    return A, C, b2, ws, scalars
+
+
+@pytest.mark.parametrize("zero", ["A_v", "W"])
+def test_warmstart_factor_failure_at_iteration_0_matches_jax(zero):
+    """Scenario 2's first factor fails in a warmstart: its G is zero, from
+    an all-zero A_v (as in test_factor_failure_scenario_matches_jax) or
+    from a zero warm iterate.  The warmstart aborts: the scenario restarts
+    from the identity, not done, not failed.  With A_v zero its next
+    factor fails too and it stops there, failed; with W zero it solves
+    from the identity."""
+    A, C, b2, ws, scalars = _warm_batch()
+    if zero == "A_v":
+        A[2, :, 1] = 0.0
+    else:
+        ws[0][2] = 0.0
     rj, rt = _run_both(A, C, b2, ws, scalars, max_iterations=30,
-                       initialization_mode=conex_tpu.WARMSTART)
-    assert rj.stats_dinf[1, 0] >= 2.0  # the abort
-    assert rj.num_iterations[0] < rj.num_iterations[1]
+                       initialization_mode=conex_tpu.WARMSTART,
+                       prepare_dual_variables=True)
+    assert rj.fail.tolist() == [False, False, zero == "A_v", False]
+    assert rj.stats_k[2, 0] == 0.0 and rj.stats_k[0, 0] > 0.0  # pass 0 failed
+    if zero == "A_v":
+        assert int(rj.num_iterations[2]) == 0
+        np.testing.assert_array_equal(rt.ws[0].w[2], _identity_ws(1, 2, 6)[0])
+    else:
+        assert rj.solved.all() and int(rj.num_iterations[2]) > 1
+    _assert_same_trajectory(rj, rt)
+
+
+def test_iteration_limit_batch_matches_jax():
+    """A batch that ends on the iteration limit: every scenario runs all 8
+    passes; three are marked max_iters_reached and not solved, one finishes
+    its centering on the last pass and is solved."""
+    S, B, n, m = 4, 2, 6, 3
+    A, C, b = _batch(1, S, B, n, m)
+    rj, rt = _run_both(A, C, b, _identity_ws(S, B, n), _cold_scalars(S),
+                       max_iterations=8, final_centering_steps=2)
+    assert (rj.num_iterations == 8).all() and not rj.fail.any()
+    assert rj.solved.tolist() == [False, False, True, False]
     _assert_same_trajectory(rj, rt)
 
 
@@ -174,6 +221,17 @@ def test_bench_config_small_matches_jax():
     assert (rt.num_iterations == 30).all() and not rt.fail.any()
     np.testing.assert_allclose(rt.k, 100.0)
     _assert_same_trajectory(rj, rt)
+
+
+def test_tree_select_passes_a_shared_leaf_through():
+    """A leaf that is the same tensor on both sides comes back as that very
+    tensor; the others are selected per scenario, nested tuples too."""
+    mask = torch.tensor([True, False, True])
+    shared, a, b = torch.arange(6.0).reshape(3, 2), torch.ones(3), torch.zeros(3)
+    got = tloop.tree_select(mask, (shared, (a, shared)), (shared, (b, shared)))
+    assert got[0] is shared and got[1][1] is shared
+    assert got[1][0].tolist() == [1.0, 0.0, 1.0]
+    assert tloop.tree_select(mask, shared, shared) is shared
 
 
 def test_one_program_solve_matches_solve_compiled():

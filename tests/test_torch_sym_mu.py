@@ -23,7 +23,9 @@ import jax.numpy as jnp
 from conex_tpu.algebra import sym as jsym
 from conex_tpu.solver import mu as jmu
 from conex_tpu_torch.algebra import sym as tsym
+from conex_tpu_torch.cones.psd import PSDState
 from conex_tpu_torch.solver import mu as tmu
+from conex_tpu_torch.utils.profiling import counters
 
 
 def _t(x):
@@ -102,6 +104,36 @@ def test_extreme_eigenvalues_warm_cold_sentinel_matches_jax():
     )
     t = tsym.extreme_eigenvalues_warm(_t(M), *(_t(ones),) * 4, _t(lam))
     np.testing.assert_allclose(t[3].numpy(), np.asarray(j[3]), rtol=1e-6)
+
+
+@pytest.mark.parametrize("n, cold", [
+    (6, [True, False, True, False]),
+    (6, [True] * 4),
+    (6, [False] * 4),
+    (102, [False, True, False]),
+])
+def test_cold_or_warm_estimate_takes_each_scenarios_estimator(n, cold):
+    """The cones' shared estimate: the cold estimator's bits where a
+    scenario's carried lam is all zero, the warm one's (max(16, min(64,
+    n // 6)) steps) elsewhere, and one ``sync.cone.cold`` per call."""
+    rng = np.random.default_rng(5)
+    S = len(cold)
+    M = _t(_ws_products(rng, (S, 2), n))
+    _, _, seeds, lam = tsym.extreme_eigenvalues_seeded(
+        M + 0.01 * _t(_ws_products(rng, (S, 2), n)))
+    lam = torch.where(torch.tensor(cold)[:, None, None], 0.0, lam)
+    carried = PSDState(M, *seeds, lam)
+    before = counters["sync.cone.cold"]
+    got = tsym.extreme_eigenvalues_cold_or_warm(M, carried)
+    assert counters["sync.cone.cold"] == before + 1
+    want_cold = tsym.extreme_eigenvalues_seeded(M)
+    want_warm = tsym.extreme_eigenvalues_warm(M, *seeds, lam,
+                                              num_steps=max(16, min(64, n // 6)))
+    flat = lambda out: [out[0], out[1], *out[2], out[3]]
+    for g, c, w in zip(flat(got), flat(want_cold), flat(want_warm)):
+        for s in range(S):
+            want = c[s] if cold[s] else w[s]
+            assert g[s].dtype == want.dtype and torch.equal(g[s], want), s
 
 
 @pytest.mark.parametrize(

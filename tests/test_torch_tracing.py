@@ -139,6 +139,30 @@ def test_a_batch_counts_its_live_scenario_passes(tmp_path):
     assert diff["calls"] == 1 and sum(name.startswith("conex.call/") for name, _, _ in spans) == 1
 
 
+def test_a_pass_selects_the_loop_state_once(tmp_path):
+    """A coldstart pass of a one-block dense SDP selects its outcome once:
+    the few fields in which done, marked and failed scenarios differ from
+    the state they started the pass with, then the whole state, so at
+    most 40 ``where`` kernels (three whole-state merges of the 30 tensors
+    took 90), all inside ``conex.select`` spans that nest under
+    ``conex.pass``."""
+    A, C = _lmi(6)
+    prog = ct.Program(3, device="cpu")
+    prog.add_lmi_constraint(A, C)
+    _, spans, diff = _traced(
+        lambda: prog.solve(np.ones(3), ct.SolverConfig(max_iterations=1)), tmp_path)
+    assert diff["loop.passes"] == 1
+    selects = [(ts, end) for name, ts, end in spans if name == "conex.select"]
+    assert selects
+    assert {parent for name, parent in _parents(spans) if name == "conex.select"} == {
+        "conex.pass"}
+    (path,) = tmp_path.glob("*.json")
+    wheres = [e["ts"] for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("name") == "aten::where" and "dur" in e]
+    inside = sum(any(ts <= w <= end for ts, end in selects) for w in wheres)
+    assert 0 < inside <= 40, inside
+
+
 def test_the_divergence_update_syncs_once_a_pass_and_the_psd_block_twice():
     A, C = _lmi(4)
     prog = ct.Program(3, device="cpu")
