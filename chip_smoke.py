@@ -173,6 +173,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    through solve_scenarios with the kernel and the plain loop: y,
    num_iterations and solved equal to the bit, every column step of the
    kernel's solves through the kernel;
+4k. a LinearCone's bound rows held as a diagonal (cones/lp.py::
+   split_bound_rows) against the dense products of the same cone, on the
+   qp_b64 batch (64 programs of 2,000 box rows over 1,010 variables, f64)
+   at box iterates drawn log-uniform on [1e-4, 1e4]: every row bound
+   (lp.bound_rows 2,000), minus_s and AW equal to the bit, G's diagonal
+   within 1 ulp of the dense product's, which holds exact zeros off it;
+   the CUDA-event time of the cell's conex.schur (both blocks' schur) on
+   each path; one solve of the batch on each path: the same solved flags
+   and iteration counts, y within 1e-9;
 5. a known answer: a small f64 SDP through Program(device="cuda"), against
    lambda_min(C) and the CPU solve;
 5b. a known SOC answer through Program(device="cuda"): max b'y s.t.
@@ -4026,6 +4035,101 @@ def phase_ldlt_panel(device):
     return dict(launches=launches, max_abs_err=max_abs, ms=panel_ms, plain_ms=plain_panel_ms, **panel_bound)
 
 
+def ulps_apart(got, want):
+    """Largest |got - want| in units of the last place of want (f64)."""
+    import torch
+
+    ulp = torch.nextafter(want.abs(), torch.full_like(want, float("inf"))) - want.abs()
+    return float(((got - want).abs() / ulp).max())
+
+
+def phase_lp_bound_rows(device):
+    """4k: the qp_b64 batch's box rows through the bound path against the
+    dense products on the card."""
+    import torch
+
+    from conex_tpu_torch.cones.lp import LinearCone
+    from conex_tpu_torch.utils.profiling import counters
+    from portbench import drivers, spec
+    from portbench.problems import osqp_portfolio
+    from portbench.workload import dtype_of
+
+    start = time.perf_counter()
+    card = card_name_and_power_limit()
+    config = spec.load_config("osqp_portfolio_k10")
+    traffic = dict(spec.load_traffic("qp_b64"), pool=1)
+    data = osqp_portfolio.make(config, traffic["programs_seed"], 0, traffic["batch"],
+                               torch.float64, device)
+    blocks, _, _ = osqp_portfolio.scenario_batch(data)
+    qcost, dense = blocks
+    before = dict(counters)
+    t0 = time.perf_counter()
+    split = dense.split_bound_rows()
+    torch.cuda.synchronize()
+    split_ms = 1e3 * (time.perf_counter() - t0)
+    moved = {k: counters[k] - before.get(k, 0)
+             for k in ("lp.rows", "lp.bound_rows", "sync.cone.lp_split")}
+    log(f"[4k lp bound rows] A {tuple(dense.A.shape)}: split in {split_ms:.3f} ms (host "
+        f"clock, first call); counters {moved}; table {tuple(split.column_rows.shape)}")
+    if moved["lp.bound_rows"] != moved["lp.rows"] or split.general_rows is not None:
+        fail(f"4k: not every box row took the bound path: {moved}")
+    S, n = dense.c.shape
+    g = torch.Generator(device=device).manual_seed(29)
+    kw = dict(generator=g, dtype=torch.float64, device=device)
+    w = 10.0 ** (8 * torch.rand(S, n, **kw) - 4)
+    y = torch.randn(S, dense.num_vars, **kw)
+    k = 10.0 ** (4 * torch.rand(S, **kw))
+    got, want = split.schur(w), dense.schur(w)
+    diag = torch.diagonal(want.G, dim1=1, dim2=2)
+    checks = {
+        "minus_s": same_bits(split._minus_s(y, k), dense._minus_s(y, k)),
+        "AW": same_bits(got.AW, want.AW),
+        "dense G zero off its diagonal": bool((want.G - torch.diag_embed(diag) == 0).all()),
+        "G's diagonal within 1 ulp": ulps_apart(got.G, diag) <= 1.0,
+    }
+    info = {"AQc equal to the bit": same_bits(got.AQc, want.AQc),
+            "G's diagonal equal to the bit": same_bits(got.G, diag),
+            "G's diagonal, ulps apart at most": ulps_apart(got.G, diag)}
+    log(f"[4k lp bound rows] checks {checks}; also {info}")
+    if not all(checks.values()):
+        fail(f"4k: the bound path differs from the dense products: {checks}")
+    times = {}
+    for label, lp in (("dense", dense), ("bound", split), ("dense again", dense),
+                      ("bound again", split)):
+        times[label] = time_ms(lambda: (qcost.schur(None), lp.schur(w)), LDLT_REPS)
+    log(f"[4k lp bound rows] conex.schur of the cell (QuadraticCost and LinearCone), "
+        f"CUDA events, ms a call: {times}; {card}")
+    del got, want, diag
+    driver = drivers.make(config, traffic, device, dtype_of(config["dtype"]))
+    runs = {}
+    for label in ("bound", "dense"):
+        t0 = time.perf_counter()
+        if label == "dense":
+            keep = LinearCone.split_bound_rows
+            LinearCone.split_bound_rows = lambda self: self
+            try:
+                _, res = driver.call(0)
+            finally:
+                LinearCone.split_bound_rows = keep
+        else:
+            _, res = driver.call(0)
+        runs[label] = res
+        log(f"[4k lp bound rows] qp_b64 {label}: {time.perf_counter() - t0:.3f} s, max "
+            f"iterations {int(res.num_iterations.max())}, solved {int(res.solved.sum())} of "
+            f"{res.solved.numel()}")
+    a, b = runs["bound"], runs["dense"]
+    same = {"solved": torch.equal(a.solved, b.solved),
+            "num_iterations": torch.equal(a.num_iterations, b.num_iterations),
+            "y within 1e-9": float((a.y - b.y).abs().max()) <= 1e-9}
+    log(f"[4k lp bound rows] qp_b64 bound against dense: {same}; largest |y difference| "
+        f"{float((a.y - b.y).abs().max())!r}; y equal to the bit {torch.equal(a.y, b.y)}")
+    if not all(same.values()):
+        fail(f"4k: the bound path's solve differs from the dense one: {same}")
+    del driver, runs, a, b, blocks, dense, split, data
+    torch.cuda.empty_cache()
+    log(f"[4k lp bound rows] ok in {time.perf_counter() - start:.1f} s")
+
+
 def phase_probe_entry_points():
     """The two probe harnesses on the card; returns each variant's kernel
     launches in this phase."""
@@ -4122,6 +4226,7 @@ def main():
     schur["path_launches"]["4h"] = phase_sharded(device)
     phase_warm_graph(device)
     ldlt = phase_ldlt_panel(device)
+    phase_lp_bound_rows(device)
     phase_known_answer(device)
     phase_soc_known_answer(device)
     phase_lp_known_answer(device)

@@ -30,10 +30,13 @@ class SchurOut(NamedTuple):
     """One block's contribution to the Schur-complement system.
 
     Mirrors WorkspaceSchurComplement (reference conex/newton_step.h:51-107),
-    restricted to the block's local variables.
+    restricted to the block's local variables.  A block whose G is
+    diagonal may hand over that diagonal, a 2-D G of shape (S, v), which
+    the assembly adds onto the diagonal of the block's variables (a
+    LinearCone whose rows are all bound rows, cones/lp.py).
     """
 
-    G: torch.Tensor  # (S, v, v) local Schur complement block
+    G: torch.Tensor  # (S, v, v) local Schur complement block, or (S, v) its diagonal
     AW: torch.Tensor  # (S, v)
     AQc: torch.Tensor  # (S, v)
     w_dot_c: torch.Tensor  # (S,) <w, c>

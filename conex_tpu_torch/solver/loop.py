@@ -32,6 +32,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..cones.base import local_vars, per_scenario, tree_map, tree_select
+from ..cones.lp import LinearCone
 from ..config import (KKT_SOLVER_LDLT, KKT_SOLVER_LLT, SCHUR_PRECISION_MODES,
                       WARMSTART, SolverConfig)
 from ..parallel.collectives import pany, pmax, pmin, psum
@@ -99,8 +100,15 @@ class SolveResult(NamedTuple):
 
 def _scatter_mat(G, vars_, Gi):
     """Add a block's (S, v, v) contribution onto its variables of G
-    (S, N, N), in place: the first v, or ``vars_`` (JAX ``_scatter_mat``)."""
-    if vars_ is None:
+    (S, N, N), in place: the first v, or ``vars_`` (JAX ``_scatter_mat``).
+    A 2-D Gi (S, v) is a diagonal and goes onto G's diagonal."""
+    if Gi.dim() == 2:
+        if vars_ is None:
+            G.diagonal(dim1=1, dim2=2)[:, :Gi.shape[-1]] += Gi
+        else:
+            ix = torch.tensor(vars_, device=G.device)
+            G[:, ix, ix] += Gi
+    elif vars_ is None:
         v = Gi.shape[-1]
         G[:, :v, :v] += Gi
     else:
@@ -158,7 +166,8 @@ def assemble(blocks, eq_blocks, ws, n_kkt: int, m: int, dtype, structure=None,
     for blk, out in zip(blocks, outs):
         if compressed is not None:
             v = blk.vars_ if blk.vars_ is not None else tuple(range(out.G.shape[-1]))
-            scatter_contribution(G, compressed, v, v, out.G)
+            Gi = torch.diag_embed(out.G) if out.G.dim() == 2 else out.G
+            scatter_contribution(G, compressed, v, v, Gi)
         else:
             _scatter_mat(G, blk.vars_, out.G)
         _scatter_vec(AW, blk.vars_, out.AW)
@@ -345,6 +354,10 @@ def _solve_impl(blocks, eq_blocks, b, init_ws, init_scalars,
     ``rank_override`` must then be the global rank sum of the blocks."""
     _check_supported(config)
     with span("conex.solve"), _no_tf32() if b.is_cuda else contextlib.nullcontext():
+        # Once per solve: a linear cone's bound rows leave its dense
+        # products (cones/lp.py).
+        blocks = tuple(blk.split_bound_rows() if isinstance(blk, LinearCone) else blk
+                       for blk in blocks)
         return _solve_loop(blocks, eq_blocks, b, init_ws, init_scalars, config,
                            kkt_structure, group, rank_override)
 

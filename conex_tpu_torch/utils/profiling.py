@@ -24,7 +24,9 @@ The port's own instruments:
   clamped LDLT factors and the columns their scalar steps take on either
   device, ``kkt.ldlt.kernel_columns`` and ``kkt.ldlt.panel_launches``,
   the columns csrc/ldlt.cu's kernel took on the card and its launches
-  (solver/kkt.py).
+  (solver/kkt.py); ``lp.rows`` and ``lp.bound_rows``, a LinearCone's rows
+  at each split of its bound rows and those that took the bound path
+  (cones/lp.py, with its host read ``sync.cone.lp_split``).
 
 The spans, by layer: ``conex.call/<n>``, ``conex.program.add``,
 ``conex.program.copy_out``, ``conex.program.dual`` (front end);
@@ -34,7 +36,8 @@ The spans, by layer: ``conex.call/<n>``, ``conex.program.add``,
 ``conex.factor``), ``conex.ldlt.update`` (a panel's solve and trailing
 update, inside ``conex.ldlt``), ``conex.kkt_solve`` (KKT);
 ``conex.prepare_step``, ``conex.take_step``, ``conex.slack_stats``,
-``conex.line_search`` (cone).
+``conex.line_search``, ``conex.lp.split`` (a LinearCone's bound rows held
+apart, once per solve, inside ``conex.solve``) (cone).
 
 Twin of ``conex_tpu/utils/profiling.py`` besides: the counterpart of the
 reference's compile-time macro timers (CONEX_ENABLE_TIMER,

@@ -40,6 +40,7 @@ PARENTS = {
     "conex.prepare_step": {"conex.pass"},
     "conex.take_step": {"conex.pass"},
     "conex.select": {"conex.pass"},
+    "conex.lp.split": {"conex.solve"},
 }
 
 
@@ -104,7 +105,9 @@ def test_a_request_leaves_each_span_nested_as_its_layers(line_search, tmp_path):
     pairs = _parents(spans)
     names = {name for name, _ in pairs}
     mu_phase = "conex.line_search" if line_search else "conex.slack_stats"
-    assert set(PARENTS) - {"conex.line_search", "conex.slack_stats"} | {mu_phase} <= names
+    # The LP's rows are split once per solve (cones/lp.py); the SDP has none.
+    own = {mu_phase, "conex.lp.split"} if line_search else {mu_phase}
+    assert set(PARENTS) - {"conex.line_search", "conex.slack_stats", "conex.lp.split"} | own <= names
     for name, parent in pairs:
         assert parent in PARENTS[name], (name, parent)
     # One call, one entry span, named by its ordinal in ``calls``.
