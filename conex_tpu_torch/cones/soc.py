@@ -9,6 +9,11 @@ As in the JAX package, the iterate stays w and w^{1/2} travels in the step
 cache (the reference keeps w^{1/2} in its workspace between PrepareStep and
 TakeStep, soc_constraint.cc:251-270).  The Schur phase is einsum: the JAX
 package computes it outside any Pallas kernel too.
+
+Spans and counters (utils/profiling.py): ``schur`` runs inside
+``conex.soc.schur`` and counts ``soc.schur.calls``; ``prepare_step``,
+``take_step``, ``slack_stats`` and ``affine_step`` run inside
+``conex.soc.step``.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..algebra import spin
+from ..utils.profiling import counters, spanned
 from .base import SchurOut, SlackStats, per_scenario
 
 
@@ -66,8 +72,10 @@ class SOCCone:
         # reference: ComputeNegativeSlack (soc_constraint.cc:193-197)
         return torch.einsum("sbnv,sv->sbn", self.A, y) - per_scenario(k, 3) * self.c
 
+    @spanned("conex.soc.schur")
     def schur(self, w: torch.Tensor) -> SchurOut:
         # reference: ConstructSchurComplementSystem (soc_constraint.cc:272-303)
+        counters["soc.schur.calls"] += 1
         wsqrt = spin.sqrt(w)
         # Row (s, b, i) of WA holds Q(wsqrt_sb) A_sb[:, i]; Q is linear in
         # its argument, so it applies to every column at once.
@@ -83,6 +91,7 @@ class SOCCone:
             c_dot_Qc=2.0 * torch.sum(WsqrtC * WsqrtC, dim=(1, 2)),
         )
 
+    @spanned("conex.soc.step")
     def prepare_step(self, w, y, c_weight, e_weight):
         # reference: PrepareStep (soc_constraint.cc:251-270)
         minus_s = self._minus_s(y, c_weight)
@@ -93,11 +102,13 @@ class SOCCone:
         normsq = 2.0 * torch.sum(d * d, dim=(1, 2))
         return SOCStepCache(d=d, wsqrt=wsqrt), norminf, normsq
 
+    @spanned("conex.soc.step")
     def take_step(self, w, cache: SOCStepCache, step_size):
         # reference: TakeStep (soc_constraint.cc:225-249)
         expd = spin.exp(per_scenario(step_size, 3) * cache.d)
         return spin.quadratic_representation(cache.wsqrt, expd)
 
+    @spanned("conex.soc.step")
     def affine_step(self, w, y, e_weight):
         # Dual recovery: the first-order update W += Q(w) s with s = A y
         # (conex_tpu/cones/soc.py:105-112; the reference SOC kernel has no
@@ -107,6 +118,7 @@ class SOCCone:
             w, minus_s
         )
 
+    @spanned("conex.soc.step")
     def slack_stats(self, w, y, c_weight) -> SlackStats:
         # reference: GetWeightedSlackEigenvalues (soc_constraint.cc:200-223)
         minus_s = self._minus_s(y, c_weight)

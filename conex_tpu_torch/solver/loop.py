@@ -33,6 +33,7 @@ import torch
 
 from ..cones.base import local_vars, per_scenario, tree_map, tree_select
 from ..cones.lp import LinearCone
+from ..cones.soc import SOCCone
 from ..config import (KKT_SOLVER_LDLT, KKT_SOLVER_LLT, SCHUR_PRECISION_MODES,
                       WARMSTART, SolverConfig)
 from ..parallel.collectives import pany, pmax, pmin, psum
@@ -358,6 +359,9 @@ def _solve_impl(blocks, eq_blocks, b, init_ws, init_scalars,
         # products (cones/lp.py).
         blocks = tuple(blk.split_bound_rows() if isinstance(blk, LinearCone) else blk
                        for blk in blocks)
+        for blk in blocks:
+            if isinstance(blk, SOCCone):
+                counters["soc.cones"] += blk.batch
         return _solve_loop(blocks, eq_blocks, b, init_ws, init_scalars, config,
                            kkt_structure, group, rank_override)
 

@@ -26,7 +26,10 @@ The port's own instruments:
   the columns csrc/ldlt.cu's kernel took on the card and its launches
   (solver/kkt.py); ``lp.rows`` and ``lp.bound_rows``, a LinearCone's rows
   at each split of its bound rows and those that took the bound path
-  (cones/lp.py, with its host read ``sync.cone.lp_split``).
+  (cones/lp.py, with its host read ``sync.cone.lp_split``); ``soc.cones``,
+  the Lorentz cones of each solve's SOCCone blocks, per scenario
+  (solver/loop.py), and ``soc.schur.calls``, the calls of SOCCone.schur
+  (cones/soc.py).
 
 The spans, by layer: ``conex.call/<n>``, ``conex.program.add``,
 ``conex.program.copy_out``, ``conex.program.dual`` (front end);
@@ -37,7 +40,10 @@ The spans, by layer: ``conex.call/<n>``, ``conex.program.add``,
 update, inside ``conex.ldlt``), ``conex.kkt_solve`` (KKT);
 ``conex.prepare_step``, ``conex.take_step``, ``conex.slack_stats``,
 ``conex.line_search``, ``conex.lp.split`` (a LinearCone's bound rows held
-apart, once per solve, inside ``conex.solve``) (cone).
+apart, once per solve, inside ``conex.solve``), ``conex.soc.schur`` (an
+SOCCone's Schur block, inside ``conex.schur``) and ``conex.soc.step`` (its
+prepare_step, take_step, slack_stats and affine_step, inside the phase that
+calls them) (cone).
 
 Twin of ``conex_tpu/utils/profiling.py`` besides: the counterpart of the
 reference's compile-time macro timers (CONEX_ENABLE_TIMER,

@@ -208,3 +208,63 @@ def test_an_entry_inside_another_is_one_call():
         with profiling.entry():
             pass
     assert counters["calls"] == before + 1
+
+
+# The Lorentz-cone block's spans (cones/soc.py) and where each opens.
+SOC_PARENTS = {
+    "conex.soc.schur": {"conex.schur"},
+    "conex.soc.step": {"conex.prepare_step", "conex.take_step", "conex.slack_stats",
+                       "conex.epilogue"},
+}
+
+
+def _portfolio(name, S=2, **solver):
+    """S programs of a portbench class at k = 2, n = 20 through
+    solve_scenarios, under the configuration's solver settings and
+    ``solver``: the tracking-error SOCP (an SOCCone of two cones, the box's
+    LinearCone, the equality rows) or the portfolio QP."""
+    from portbench import spec
+    from portbench.workload import solver_config
+
+    problem = spec.load_problem(name)
+    config = dict(spec.load_config({"portfolio_te": "portfolio_te_k10",
+                                    "osqp_portfolio": "osqp_portfolio_k10"}[name]), k=2, n=20)
+    data = problem.make(config, 0, 0, S, torch.float64, "cpu")
+    blocks, eq, b = problem.scenario_batch(data)
+    ws, scalars = problem.scenario_start(blocks, b, torch.float64, "cpu")
+    return solve_scenarios(blocks, eq, b, ws, scalars, solver_config(config).replace(**solver))
+
+
+def test_a_solve_with_an_soc_block_opens_its_spans_and_counts_its_cones(tmp_path):
+    """The Schur block inside conex.schur, the steps inside the phase that
+    calls them (the dual recovery's affine step inside conex.epilogue);
+    soc.cones counts the block's two cones once per solve,
+    soc.schur.calls each Schur block, one a conex.soc.schur span."""
+    res, spans, diff = _traced(
+        lambda: _portfolio("portfolio_te", prepare_dual_variables=True), tmp_path)
+    assert res.solved.all()
+    pairs = _parents(spans)
+    ldlt = {"conex.ldlt": {"conex.factor"}, "conex.ldlt.update": {"conex.ldlt"}}
+    for name, parent in pairs:
+        assert parent in {**PARENTS, **ldlt, **SOC_PARENTS}[name], (name, parent)
+    opened = {name for name, _ in pairs}
+    assert set(SOC_PARENTS) <= opened and "conex.slack_stats" in opened
+    schur = [name for name, _ in pairs].count("conex.soc.schur")
+    assert diff["soc.cones"] == 2 and diff["soc.schur.calls"] == schur
+    # One Schur block a pass, and one more for the dual recovery.
+    assert schur == diff["loop.passes"] + 1
+    assert {parent for name, parent in pairs if name == "conex.soc.step"} == SOC_PARENTS[
+        "conex.soc.step"]
+
+
+@pytest.mark.parametrize("request_of", ["sdp", "lp", "osqp_portfolio"])
+def test_a_solve_without_an_soc_block_opens_no_soc_span_and_counts_nothing_of_it(
+        request_of, tmp_path):
+    """The dense SDP, the LP request and the portfolio QP: no conex.soc.*
+    span, no soc.* counter."""
+    fn = {"sdp": lambda: _request(False), "lp": lambda: _request(True),
+          "osqp_portfolio": lambda: _portfolio("osqp_portfolio")}[request_of]
+    _, spans, diff = _traced(fn, tmp_path)
+    assert not [name for name, _, _ in spans if name.startswith("conex.soc.")]
+    assert not [key for key in diff if key.startswith("soc.")]
+    assert diff["loop.passes"] > 0
